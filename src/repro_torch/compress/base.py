@@ -7,10 +7,15 @@ decodes (``roundtrip``) and states the exact wire size
     y_t = x_t + r_{t-1};   x̂_t = roundtrip(y_t);   r_t = y_t - x̂_t
 
 so no signal is lost, only delayed.
+
+Stochastic codecs (QSGD) take one row of uniform noise per sender,
+``noise`` (N, D): the caller draws row i from the stream of the client
+that sent it, never from its position in the batch. Deterministic
+codecs ignore it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,23 +32,42 @@ class Codec:
     def is_identity(self) -> bool:
         return True
 
+    @property
+    def needs_noise(self) -> bool:
+        """Whether ``roundtrip`` reads per-sender uniform noise."""
+        return False
+
     def payload_bytes(self, d: int) -> int:
         """Exact wire bytes for one D-dim update."""
         return FP32_BYTES * d
 
-    def roundtrip(self, x: Tensor) -> Tensor:
+    def roundtrip(self, x: Tensor, noise: Optional[Tensor] = None) -> Tensor:
         """What the receiver decodes for the rows of ``x``."""
         return x
 
+    def roundtrip_residual(self, y: Tensor, noise: Optional[Tensor] = None
+                           ) -> Tuple[Tensor, Tensor]:
+        """(x̂, y − x̂): the round trip and the error-feedback residual."""
+        x_hat = self.roundtrip(y, noise)
+        return x_hat, y - x_hat
+
+
+def ef_step(codec: Codec, x: Tensor, residual: Tensor,
+            noise: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """One error-feedback round: (x̂ transmitted, new residual)."""
+    if codec.is_identity:
+        return x, residual
+    return codec.roundtrip_residual(x + residual, noise)
+
 
 def ef_step_masked(codec: Codec, x: Tensor, residual: Tensor,
-                   row_mask: Tensor) -> Tuple[Tensor, Tensor]:
+                   row_mask: Tensor, noise: Optional[Tensor] = None
+                   ) -> Tuple[Tensor, Tensor]:
     """One fixed-shape error-feedback round: rows where ``row_mask`` is
     False pass through untouched and KEEP their residual (nothing
     crossed the wire for them). Returns (x̂ transmitted, new residual)."""
     if codec.is_identity:
         return x, residual
-    y = x + residual
-    x_hat = codec.roundtrip(y)
+    x_hat, new_res = codec.roundtrip_residual(x + residual, noise)
     keep = row_mask[:, None]
-    return torch.where(keep, x_hat, x), torch.where(keep, y - x_hat, residual)
+    return torch.where(keep, x_hat, x), torch.where(keep, new_res, residual)

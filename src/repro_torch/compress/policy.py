@@ -10,7 +10,9 @@ Two link classes exist in the topology:
   aggregator cloud); priced at ``c_cross``.
 
 A ``LinkPolicy`` assigns one codec per class; the default,
-``cross_only``, compresses only the expensive egress links.
+``cross_only``, compresses only the expensive egress links. Under
+``all`` both classes share ONE codec object (``intra is cross``), so the
+edge wire runs one round trip over all K rows.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Tuple
 import numpy as np
 
 from repro_torch.compress.base import Codec
+from repro_torch.compress.qsgd import QSGDCodec
 from repro_torch.compress.topk import TopKCodec
 
 POLICIES = ("none", "cross_only", "intra_only", "all")
@@ -55,17 +58,13 @@ class LinkPolicy:
 
 
 def make_codec(name: str, *, ratio: float = 0.1, levels: int = 15) -> Codec:
-    """Codec factory: ``none`` | ``topk`` (``qsgd`` comes with a later
-    slice of the port)."""
+    """Codec factory: ``none`` | ``topk`` | ``qsgd``."""
     if name in ("none", None, ""):
         return Codec()
     if name == "topk":
         return TopKCodec(ratio=ratio)
     if name == "qsgd":
-        raise NotImplementedError(
-            "compressor='qsgd' is not ported yet: it comes with the "
-            "stochastic_quantize kernel (ROADMAP queue A item 6, queue B "
-            "item 4)")
+        return QSGDCodec(levels=levels)
     raise ValueError(f"unknown compressor {name!r}; known: "
                      "['none', 'qsgd', 'topk']")
 

@@ -11,6 +11,7 @@ kernel launch with the fp16 round trip fused.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -40,7 +41,8 @@ class TopKCodec(Codec):
             return super().payload_bytes(d)
         return _HEADER_BYTES + self.k_for(d) * (_VALUE_BYTES + _INDEX_BYTES)
 
-    def roundtrip(self, x: torch.Tensor) -> torch.Tensor:
+    def roundtrip(self, x: torch.Tensor,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.is_identity:
             return x
         thr = ops.row_threshold(x, self.k_for(x.shape[1]))

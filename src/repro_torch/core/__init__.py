@@ -5,7 +5,11 @@ Eq. 7    -> repro_torch.core.shapley
 Eq. 8–9  -> repro_torch.core.reputation (the EMA runs in the engine)
 Eq. 10   -> repro_torch.core.selection
 Eq. 6    -> repro_torch.core.trust
+update-level attacks      -> repro_torch.core.attacks
+multi-feature trust gate  -> repro_torch.core.features
 """
+from repro_torch.core import features
+from repro_torch.core.attacks import UPDATE_ATTACKS, apply_update_attack
 from repro_torch.core.cost import (CostModel, hierarchical_unit_costs_torch,
                                    round_bytes_torch)
 from repro_torch.core.fl_types import CloudTopology, RoundMetrics
@@ -18,4 +22,5 @@ from repro_torch.core.trust import cloud_trust
 __all__ = ["CostModel", "hierarchical_unit_costs_torch", "round_bytes_torch",
            "CloudTopology", "RoundMetrics", "ReputationState",
            "exploration_quota", "select_clients", "selected_count",
-           "gradient_contribution", "cloud_trust"]
+           "gradient_contribution", "cloud_trust", "UPDATE_ATTACKS",
+           "apply_update_attack", "features"]

@@ -3,19 +3,28 @@ out)``: the port of the hierarchical branch of the reference's
 ``round_step`` (``repro/federated/engine.py``).
 
 One round: Eq. 10 selection (per-cloud quota + tie-break noise), local
-training of the selected clients and of the per-cloud references,
-Eq. 7 contribution with the median damp, Eq. 8–9 reputation EMA, Eq. 11
-trust against the client's own-cloud reference, Eq. 12 rescale + Eq. 13
-per-cloud aggregate, the edge→global wire (top-k with error feedback),
-the Eq. 6 β combine, and byte-exact accounting. Eq. 7 + 11 statistics go
-through the ``trust_score`` kernel, Eq. 12 + 13 through ``weighted_agg``
-and the wire's sparsification through ``topk_mask``.
+training of the selected clients and of the per-cloud references, the
+update attack on the active malicious rows, the client→edge wire (error
+feedback, residuals per sender), Eq. 7 contribution with the median
+damp and, under ``trust_features="multi"``, the multi-feature gate,
+Eq. 8–9 reputation EMA, Eq. 11 trust against the client's own-cloud
+reference, Eq. 12 rescale + Eq. 13 per-cloud aggregate, the edge→global
+wire (error feedback), the Eq. 6 β combine, and byte-exact accounting.
+Eq. 7 + 11 statistics go through the ``trust_score`` kernel, the
+features through ``trust_features``, Eq. 12 + 13 through
+``weighted_agg``, and the wires through ``topk_mask`` (top-k) or
+``stochastic_quantize`` (QSGD).
 
-Round randomness is a :class:`RoundDraws`: the selection noise and the
-minibatch indices of the clients and of the reference training. Own mode
-(:meth:`Engine.draws`) draws them from ``torch.Generator`` streams on the
-device seeded from ``(seed·7919 + t, fold)``; replay mode takes them
-from the caller, e.g. re-derived from the reference's key schedule.
+Round randomness is a :class:`RoundDraws`: the selection noise, the
+minibatch indices of the clients and of the reference training, and —
+where the configuration reads them — the wires' QSGD noise and the
+gaussian attack's normals. Own mode (:meth:`Engine.draws`) draws them
+from ``torch.Generator`` streams on the device seeded from
+``(seed·7919 + t, fold, ...)``; the wire noise comes from one stream per
+SENDER (client id, or cloud on the edge wire), drawn after selection
+for the selected senders only, so a client's noise never depends on its
+row position. Replay mode takes them from the caller, e.g. re-derived
+from the reference's key schedule.
 """
 from __future__ import annotations
 
@@ -25,8 +34,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.compress import build_link_policy
+from repro_torch.compress import build_link_policy, ef_step_masked
 from repro_torch.configs.base import FLConfig
+from repro_torch.core import features as feats_mod
+from repro_torch.core.attacks import (NOISY_ATTACKS, UPDATE_ATTACKS,
+                                      apply_update_attack)
 from repro_torch.core.cost import (CostModel, hierarchical_unit_costs_torch,
                                    round_bytes_torch)
 from repro_torch.core.fl_types import CloudTopology
@@ -43,27 +55,32 @@ _GB = 1024.0 ** 3
 REF_BATCH = 32          # reference LocalTrain batch (client default)
 EPS = 1e-12
 
-# own-mode stream tags (selection keeps the reference's fold number)
+# own-mode stream tags (selection and the wires keep the reference's
+# fold numbers; the edge wire's codec sub-folds are 2 = intra, 3 = cross)
 _FOLD_SELECT = 131
 _FOLD_TRAIN = 1
 _FOLD_REF = 2
+_FOLD_ATTACK = 239
+_FOLD_CLIENT_WIRE = 211
+_FOLD_EDGE_WIRE = 223
 
 # the trust path's g^(L): the final dense layer, weight then bias (the
 # reference's last two template leaves by insertion order)
 LAST_LAYER = ("fc2_w", "fc2_b")
 
-# attacks that leave the update matrix untouched (label_flip poisons data)
-_PORTED_ATTACKS = ("none", "label_flip")
-
 
 class RoundState(NamedTuple):
-    """Everything a round mutates."""
+    """Everything a round mutates. ``res_client`` — the largest buffer,
+    N × D — is updated IN PLACE by :meth:`Engine.step` (the reference's
+    is a fresh array each round); every other field is a new tensor."""
     params: Dict[str, Tensor]    # model parameters (JAX layout, sorted keys)
     rep_ema: Tensor              # (N,) Eq. 9 reputation EMA
+    res_client: Tensor           # (N, D) EF residuals, client uplinks ((0,) when inactive)
     res_edge: Tensor             # (K, D) EF residuals, edge uplinks ((0,) when inactive)
     cum_cost: Tensor             # () running $ (float32; hosts reduce f64)
     cum_intra_bytes: Tensor      # () running intra-class wire bytes
     cum_cross_bytes: Tensor      # () running cross-cloud wire bytes
+    feat_sep: Tensor             # (F,) per-feature separability EMA ((0,) under "scalar")
     seed: int                    # own-mode stream root
 
 
@@ -74,6 +91,7 @@ class RoundOut(NamedTuple):
     cost: Tensor                 # () $ this round (float32 mirror)
     intra_bytes: Tensor          # () wire bytes, intra-class
     cross_bytes: Tensor          # () wire bytes, cross-cloud
+    feat_weights: Tensor         # (F,) feature mixing weights ((0,) under "scalar")
 
 
 class ClientData(NamedTuple):
@@ -86,10 +104,15 @@ class ClientData(NamedTuple):
 
 
 class RoundDraws(NamedTuple):
-    """One round's randomness."""
+    """One round's randomness. The optional fields are read only where
+    the configuration needs them; ``None`` there means "draw in own mode
+    after selection"."""
     select_noise: Tensor         # (N,) standard normals (Eq. 10 tie-break)
     client_idx: Tensor           # (N, steps, batch) minibatch indices
     ref_idx: Tensor              # (ref_steps, REF_BATCH), shared by clouds
+    client_noise: Optional[Tensor] = None   # (N, D) U[0,1), client wire, row = client id
+    edge_noise: Optional[Tensor] = None     # (K, D) U[0,1), edge wire, row = cloud
+    attack_noise: Optional[Tensor] = None   # (m, D) N(0,1), gaussian attack, row = selected row
 
 
 @dataclass(frozen=True)
@@ -104,6 +127,10 @@ class EngineStatic:
     cost_lambda: float
     c_intra: float
     c_cross: float
+    attack: str
+    attack_scale: float
+    gaussian_sigma: float
+    attack_z: float
     local_epochs: int
     local_batch: int
     lr: float
@@ -113,6 +140,11 @@ class EngineStatic:
     compress_ratio: float
     qsgd_levels: int
     link_policy: str
+    trust_features: str
+
+    @property
+    def multi_features(self) -> bool:
+        return self.trust_features == "multi"
 
     def topology(self) -> CloudTopology:
         return CloudTopology(cloud_of=np.array(self.cloud_of),
@@ -131,35 +163,29 @@ def static_from(flcfg: FLConfig, topo: CloudTopology,
         raise NotImplementedError(
             f"method={method!r} is not ported yet: the baselines come with "
             "ROADMAP queue A item 5")
-    if flcfg.attack not in _PORTED_ATTACKS:
-        raise NotImplementedError(
-            f"attack={flcfg.attack!r} is not ported yet: update-level "
-            "attacks come with ROADMAP queue A item 5")
-    if flcfg.trust_features == "multi":
-        raise NotImplementedError(
-            "trust_features='multi' is not ported yet: it comes with the "
-            "trust_features kernel (ROADMAP queue A item 7)")
-    if flcfg.trust_features != "scalar":
+    if flcfg.attack not in UPDATE_ATTACKS:
+        raise ValueError(f"unknown attack {flcfg.attack!r}; known: "
+                         f"{sorted(UPDATE_ATTACKS)}")
+    if flcfg.trust_features not in ("scalar", "multi"):
         raise ValueError(f"unknown trust_features {flcfg.trust_features!r}; "
                          "use 'scalar' or 'multi'")
-    lp = build_link_policy(flcfg.compressor, ratio=flcfg.compress_ratio,
-                           levels=flcfg.qsgd_levels,
-                           link_policy=flcfg.link_policy)
-    if not lp.intra.is_identity:
-        raise NotImplementedError(
-            f"link_policy={flcfg.link_policy!r} compresses client uplinks, "
-            "which is not ported yet (ROADMAP queue A item 6)")
+    # resolves (and validates) the compressor and link policy
+    build_link_policy(flcfg.compressor, ratio=flcfg.compress_ratio,
+                      levels=flcfg.qsgd_levels, link_policy=flcfg.link_policy)
     return EngineStatic(
         cloud_of=tuple(int(c) for c in topo.cloud_of),
         n_clouds=topo.n_clouds, aggregator_cloud=topo.aggregator_cloud,
         input_shape=tuple(input_shape), n_classes=int(n_classes),
         clients_per_round=flcfg.clients_per_round,
         cost_lambda=flcfg.cost_lambda, c_intra=flcfg.c_intra,
-        c_cross=flcfg.c_cross, local_epochs=flcfg.local_epochs,
+        c_cross=flcfg.c_cross, attack=flcfg.attack,
+        attack_scale=flcfg.attack_scale, gaussian_sigma=flcfg.gaussian_sigma,
+        attack_z=flcfg.attack_z, local_epochs=flcfg.local_epochs,
         local_batch=flcfg.local_batch, lr=flcfg.lr,
         server_lr=flcfg.server_lr, ema_gamma=flcfg.ema_gamma,
         compressor=flcfg.compressor, compress_ratio=flcfg.compress_ratio,
-        qsgd_levels=flcfg.qsgd_levels, link_policy=flcfg.link_policy)
+        qsgd_levels=flcfg.qsgd_levels, link_policy=flcfg.link_policy,
+        trust_features=flcfg.trust_features)
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +221,14 @@ def last_layer_index(shapes: Dict[str, Tuple[int, ...]]) -> np.ndarray:
         for k in LAST_LAYER])
 
 
-def _stream(seed: int, t: int, fold: int, device: torch.device
+def _stream(seed: int, t: int, *folds: int, device: torch.device
             ) -> torch.Generator:
+    """The own-mode stream of round t under the fold path ``folds``."""
+    h = seed * 7919 + t
+    for f in folds:
+        h = h * 1_000_003 + f
     g = torch.Generator(device=device)
-    g.manual_seed(((seed * 7919 + t) * 1_000_003 + fold) % (2 ** 63))
+    g.manual_seed(h % (2 ** 63))
     return g
 
 
@@ -300,7 +330,13 @@ class Engine:
             link_policy=st.link_policy)
         self.client_payload, self.edge_payload = lp.payload_vectors(
             topo, self.d_params, hierarchical=True)
+        # every client→edge hop is intra-class
+        self.client_wire_active = not lp.intra.is_identity
         self.edge_wire_active = lp.any_active
+        # the one stochastic codec of the edge wire reads the reference's
+        # codec sub-fold: 3 (cross) when cross-cloud links quantize, else
+        # 2 (intra, ``intra_only``)
+        self.edge_noise_fold = 3 if lp.cross.needs_noise else 2
         self.cp = torch.as_tensor(self.client_payload, dtype=torch.float32,
                                   device=dev)
         self.ep = torch.as_tensor(self.edge_payload, dtype=torch.float32,
@@ -311,7 +347,8 @@ class Engine:
     def init_state(self, seed: int,
                    params: Optional[Dict[str, Tensor]] = None) -> RoundState:
         """Round-zero state: ``params`` (default: own init from ``seed``),
-        uniform reputation, zero edge residuals when the wire is lossy."""
+        uniform reputation, zero residuals on the lossy wires, zero
+        feature separability under ``multi``."""
         dev = self.device
         if params is None:
             gen = torch.Generator(device=dev)
@@ -319,13 +356,17 @@ class Engine:
             params = client_mod.cnn_init(gen, self.static.input_shape,
                                          self.static.n_classes, device=dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
+        empty = torch.zeros(0, device=dev)
         return RoundState(
             params={k: params[k] for k in sorted(params)},
             rep_ema=ReputationState.init(self.n, device=dev).ema,
+            res_client=(torch.zeros(self.n, self.d_params, device=dev)
+                        if self.client_wire_active else empty),
             res_edge=(torch.zeros(self.k, self.d_params, device=dev)
-                      if self.edge_wire_active
-                      else torch.zeros(0, device=dev)),
+                      if self.edge_wire_active else empty),
             cum_cost=zero, cum_intra_bytes=zero, cum_cross_bytes=zero,
+            feat_sep=(torch.zeros(feats_mod.N_FEATURES, device=dev)
+                      if self.static.multi_features else empty),
             seed=int(seed))
 
     def schedule(self, data: ClientData) -> Tuple[int, int]:
@@ -336,39 +377,81 @@ class Engine:
                 client_mod.steps_for(data.ref_x.shape[1], st.local_epochs,
                                      REF_BATCH))
 
-    def draws(self, seed: int, t: int, data: ClientData) -> RoundDraws:
-        """Own-mode round randomness from device ``torch.Generator``s."""
+    def sender_noise(self, seed: int, t: int, folds: Tuple[int, ...],
+                     senders) -> Tensor:
+        """(len(senders), D) U[0, 1) wire noise, row i from the own-mode
+        stream of sender ``senders[i]`` under ``folds``."""
+        dev = self.device
+        ids = [int(i) for i in senders]
+        out = torch.empty(len(ids), self.d_params, device=dev)
+        for row, i in enumerate(ids):
+            torch.rand(self.d_params, device=dev, out=out[row],
+                       generator=_stream(seed, t, *folds, i, device=dev))
+        return out
+
+    def client_noise(self, seed: int, t: int, senders) -> Tensor:
+        return self.sender_noise(seed, t, (_FOLD_CLIENT_WIRE,), senders)
+
+    def edge_noise(self, seed: int, t: int) -> Tensor:
+        return self.sender_noise(seed, t,
+                                 (_FOLD_EDGE_WIRE, self.edge_noise_fold),
+                                 range(self.k))
+
+    def draws(self, seed: int, t: int, data: ClientData,
+              full_noise: bool = False) -> RoundDraws:
+        """Own-mode round randomness from device ``torch.Generator``s.
+        The wire noise is drawn in :meth:`step` for the selected senders
+        only; ``full_noise=True`` materializes it for every client and
+        cloud now (the same streams, so the round is the same) — for
+        running one set of draws on two devices."""
         dev = self.device
         steps, ref_steps = self.schedule(data)
+        lp = self.link_policy
+        full_client = full_noise and lp.intra.needs_noise
+        full_edge = full_noise and (lp.intra.needs_noise
+                                    or lp.cross.needs_noise)
         return RoundDraws(
-            select_noise=torch.randn(self.n, device=dev,
-                                     generator=_stream(seed, t, _FOLD_SELECT,
-                                                       dev)),
+            select_noise=torch.randn(
+                self.n, device=dev,
+                generator=_stream(seed, t, _FOLD_SELECT, device=dev)),
             client_idx=torch.randint(
                 0, data.client_x.shape[1],
                 (self.n, steps, self.static.local_batch), device=dev,
-                generator=_stream(seed, t, _FOLD_TRAIN, dev)),
+                generator=_stream(seed, t, _FOLD_TRAIN, device=dev)),
             ref_idx=torch.randint(
                 0, data.ref_x.shape[1], (ref_steps, REF_BATCH), device=dev,
-                generator=_stream(seed, t, _FOLD_REF, dev)))
+                generator=_stream(seed, t, _FOLD_REF, device=dev)),
+            client_noise=(self.client_noise(seed, t, range(self.n))
+                          if full_client else None),
+            edge_noise=self.edge_noise(seed, t) if full_edge else None)
+
+    def attack_noise(self, seed: int, t: int, m: int) -> Tensor:
+        """(m, D) standard normals of the gaussian attack."""
+        return torch.randn(m, self.d_params, device=self.device,
+                           generator=_stream(seed, t, _FOLD_ATTACK,
+                                             device=self.device))
 
     # -- the edge→global wire ------------------------------------------------
     def edge_wire(self, cloud_aggs: Tensor, res_edge: Tensor,
-                  active: Tensor) -> Tuple[Tensor, Tensor]:
+                  active: Tensor, noise: Optional[Tensor]
+                  ) -> Tuple[Tensor, Tensor]:
         """Round-trip the (K, D) cloud aggregates through each cloud's
-        uplink codec with error feedback: the cross codec runs on all K
-        rows (one launch), then the aggregator's own row takes the intra
-        codec. Inactive clouds pass through and keep their residual."""
+        uplink codec with error feedback: the aggregator's own row takes
+        the intra codec, the others the cross codec; when both are one
+        codec (``all``) that is one round trip over all K rows (one
+        launch). Inactive clouds pass through and keep their residual."""
         lp = self.link_policy
-        is_agg = (torch.arange(self.k, device=self.device)
-                  == self.agg)[:, None]
         y = cloud_aggs + res_edge
-        hat_cross = lp.cross.roundtrip(y)
-        hat_intra = (hat_cross if lp.intra is lp.cross
-                     else lp.intra.roundtrip(y))
-        x_hat = torch.where(is_agg, hat_intra, hat_cross)
+        if lp.intra is lp.cross:
+            x_hat, res = lp.cross.roundtrip_residual(y, noise)
+        else:
+            is_agg = (torch.arange(self.k, device=self.device)
+                      == self.agg)[:, None]
+            x_hat = torch.where(is_agg, lp.intra.roundtrip(y, noise),
+                                lp.cross.roundtrip(y, noise))
+            res = y - x_hat
         return (torch.where(active, x_hat, cloud_aggs),
-                torch.where(active, y - x_hat, res_edge))
+                torch.where(active, res, res_edge))
 
     # -- one round ---------------------------------------------------------------
     def step(self, state: RoundState, data: ClientData, t: int,
@@ -377,8 +460,11 @@ class Engine:
         st, dev = self.static, self.device
         if draws is None:
             draws = self.draws(state.seed, t, data)
-        draws = RoundDraws(*(torch.as_tensor(d, device=dev) for d in draws))
+        draws = RoundDraws(*(None if d is None
+                             else torch.as_tensor(d, device=dev)
+                             for d in draws))
         n, k = self.n, self.k
+        lp = self.link_policy
 
         # Eq. 10 selection (every selected client delivers in this slice)
         unit_costs = hierarchical_unit_costs_torch(
@@ -399,6 +485,31 @@ class Engine:
         ref_idx = draws.ref_idx.long()[None].expand(k, -1, -1)
         ref_flat = ravel_rows(client_mod.local_train(
             state.params, data.ref_x, data.ref_y, ref_idx, lr=st.lr))
+
+        # update-level attack on this round's active malicious rows
+        if UPDATE_ATTACKS[st.attack] is not None:
+            noise = draws.attack_noise
+            if st.attack in NOISY_ATTACKS and noise is None:
+                noise = self.attack_noise(state.seed, t, flat_sel.shape[0])
+            flat_sel = apply_update_attack(
+                st.attack, flat_sel, data.malicious[sel_idx] & valid, noise,
+                sigma=st.gaussian_sigma, scale=st.attack_scale,
+                z=st.attack_z)
+
+        # client→edge wire, EF residuals gathered/scattered per sender
+        res_client = state.res_client
+        if self.client_wire_active:
+            noise = None
+            if lp.intra.needs_noise:
+                noise = (draws.client_noise[sel_idx]
+                         if draws.client_noise is not None
+                         else self.client_noise(state.seed, t,
+                                                sel_idx.tolist()))
+            flat_sel, cur = ef_step_masked(lp.intra, flat_sel,
+                                           res_client[sel_idx], valid, noise)
+            res_client.index_copy_(0, sel_idx, cur)
+
+        # the trust path reads the attacked + compressed wire view
         ll_sel = flat_sel[:, self.ll_idx]                         # (m, L)
         ref_ll = ref_flat[:, self.ll_idx]                         # (K, L)
         sel_cloud = self.cloud_of[sel_idx]                        # (m,)
@@ -417,6 +528,19 @@ class Engine:
         damp = torch.clamp((med / torch.clamp(norms, min=EPS)) ** 2, max=1.0)
         damp = torch.where(torch.isnan(damp), torch.ones_like(damp), damp)
         phi = phi * damp * w
+
+        # multi-feature gate: features in one kernel pass, separability
+        # EMA updated first, then the gate with THIS round's weights
+        new_feat_sep = state.feat_sep
+        feat_w = torch.zeros(0, device=dev)
+        if st.multi_features:
+            feats = ops.trust_features(ll_sel, ref_ll, gbar, med, w,
+                                       ref_idx=sel_cloud, eps=EPS)
+            new_feat_sep = (feats_mod.FEAT_SEP_RHO * state.feat_sep
+                            + (1.0 - feats_mod.FEAT_SEP_RHO)
+                            * feats_mod.separability(feats, w, EPS))
+            feat_w = feats_mod.feature_weights(new_feat_sep)
+            phi = phi * feats_mod.gate(feats, new_feat_sep)
 
         # Eq. 8–9: normalize over the round, EMA for delivered rows
         total = torch.sum(phi)
@@ -440,8 +564,12 @@ class Engine:
         if self.edge_wire_active:
             active = (torch.zeros(k, device=dev).index_add_(0, sel_cloud, w)
                       > 0)[:, None]
+            noise = None
+            if lp.intra.needs_noise or lp.cross.needs_noise:
+                noise = (draws.edge_noise if draws.edge_noise is not None
+                         else self.edge_noise(state.seed, t))
             cloud_aggs, res_edge = self.edge_wire(cloud_aggs, res_edge,
-                                                  active)
+                                                  active, noise)
         # empty/zero-trust clouds fall back to their reference
         cloud_aggs = torch.where((ts_cloud > EPS)[:, None], cloud_aggs,
                                  ref_flat)
@@ -457,13 +585,14 @@ class Engine:
                                              self.agg, self.cp, self.ep)
         cost = (intra_b * st.c_intra + cross_b * st.c_cross) / _GB
         new_state = RoundState(
-            params=params, rep_ema=new_rep, res_edge=res_edge,
-            cum_cost=state.cum_cost + cost,
+            params=params, rep_ema=new_rep, res_client=res_client,
+            res_edge=res_edge, cum_cost=state.cum_cost + cost,
             cum_intra_bytes=state.cum_intra_bytes + intra_b,
             cum_cross_bytes=state.cum_cross_bytes + cross_b,
-            seed=state.seed)
+            feat_sep=new_feat_sep, seed=state.seed)
         out = RoundOut(delivered=delivered, rep=new_rep, cost=cost,
-                       intra_bytes=intra_b, cross_bytes=cross_b)
+                       intra_bytes=intra_b, cross_bytes=cross_b,
+                       feat_weights=feat_w)
         return new_state, out
 
     def host_round_accounting(self, delivered_rounds: np.ndarray

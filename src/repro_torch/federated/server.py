@@ -73,13 +73,20 @@ class FLServer:
         self.cum_cost += cost
         self.cum_intra_bytes += intra_b
         self.cum_cross_bytes += cross_b
+        extra = {"intra_bytes": intra_b, "cross_bytes": cross_b}
+        if out.feat_weights.numel():          # trust_features="multi"
+            extra["feat_weights"] = out.feat_weights.cpu().numpy()
         metrics = RoundMetrics(round=t, cost=cost, cum_cost=self.cum_cost,
                                selected=delivered,
                                reputation=state.rep_ema.cpu().numpy(),
-                               extra={"intra_bytes": intra_b,
-                                      "cross_bytes": cross_b})
+                               extra=extra)
         self.history.append(metrics)
         return metrics
+
+    @property
+    def round_state(self) -> engine_mod.RoundState:
+        """The engine state after the last round (read-only use)."""
+        return self._eng_state
 
     def evaluate(self) -> float:
         return client_mod.accuracy(self.params, self.data.test_x,

@@ -6,7 +6,12 @@ each beside its plain PyTorch version:
 * ``weighted_agg`` — Eq. 12 + 13 per-cloud aggregation (replaces
   ``repro/kernels/weighted_agg.py:weighted_agg``);
 * ``topk_mask``    — top-k sparsification mask (replaces
-  ``repro/kernels/topk_mask.py:topk_mask``).
+  ``repro/kernels/topk_mask.py:topk_mask``);
+* ``stochastic_quantize`` — QSGD stochastic rounding, with the codec's
+  dequantize and error-feedback residual fused (replaces
+  ``repro/kernels/quantize.py:stochastic_quantize``);
+* ``trust_features`` — the multi-feature trust pass (replaces
+  ``repro/kernels/trust_features.py:trust_features``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built by ``_build`` at first use) or raises, and

@@ -5,16 +5,23 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.stochastic_quantize import (
+    quantize_roundtrip, quantize_roundtrip_plain, stochastic_quantize,
+    stochastic_quantize_plain)
 from repro_torch.kernels.topk_mask import (row_threshold, topk_mask,
                                            topk_mask_plain)
+from repro_torch.kernels.trust_features import (trust_features,
+                                                trust_features_plain)
 from repro_torch.kernels.trust_score import trust_score, trust_score_plain
 from repro_torch.kernels.weighted_agg import (agg_weights, weighted_agg,
                                               weighted_agg_plain,
                                               weighted_agg_rows,
                                               weighted_agg_rows_plain)
 
+# one counter per kernel (quantize_roundtrip launches stochastic_quantize's)
 KERNELS = {"trust_score": trust_score, "weighted_agg": weighted_agg,
-           "topk_mask": topk_mask}
+           "topk_mask": topk_mask, "stochastic_quantize": stochastic_quantize,
+           "trust_features": trust_features}
 
 
 def reset_launch_counts() -> None:
@@ -29,5 +36,8 @@ def launch_counts() -> Dict[str, int]:
 __all__ = ["trust_score", "trust_score_plain", "weighted_agg",
            "weighted_agg_plain", "weighted_agg_rows",
            "weighted_agg_rows_plain", "agg_weights", "topk_mask",
-           "topk_mask_plain", "row_threshold", "KERNELS",
-           "reset_launch_counts", "launch_counts"]
+           "topk_mask_plain", "row_threshold", "stochastic_quantize",
+           "stochastic_quantize_plain", "quantize_roundtrip",
+           "quantize_roundtrip_plain", "trust_features",
+           "trust_features_plain", "KERNELS", "reset_launch_counts",
+           "launch_counts"]

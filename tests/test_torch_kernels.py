@@ -5,8 +5,8 @@ held against (a) the Pallas kernel run as tests/test_kernels.py runs it
 TPU kernel's own mode, and (b) the reference engine's inline jnp
 formulas in the per-row / per-cloud modes the port's engine uses.
 Tolerances are tests/test_kernels.py's: 1e-5 in fp32, 5e-2 in bf16
-(sums in another order); top-k, the codec round trip and the EF step are
-exact. The CUDA kernels themselves are held against their plain
+(sums in another order); top-k, the codec round trip, the EF step and
+the QSGD levels and round trip are exact. The CUDA kernels themselves are held against their plain
 versions on the card by tests/test_torch_kernels_gpu.py."""
 import jax
 import jax.numpy as jnp
@@ -16,6 +16,7 @@ import torch
 
 from repro.compress import ef_step_masked as jef_step_masked
 from repro.compress.topk import TopKCodec as JTopKCodec
+from repro.core import features as jfeatures
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.compress import ef_step_masked
@@ -166,3 +167,96 @@ def test_topk_codec_roundtrip_and_ef_step_exact(d, ratio, seed):
                            jnp.asarray(mask), None)
     for a, b in zip(got, want):
         assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("levels", [1, 15])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,seed", [(1, 3, 0), (5, 130, 1), (9, 1000, 2)])
+def test_stochastic_quantize_matches_pallas_exactly(n, d, seed, dtype,
+                                                    levels):
+    """int32 levels equal to the Pallas kernel (interpret mode, padded
+    blocks) and the oracle, a zero row included (q = 0); the fused round
+    trip equals ``ref.dequantize_ref`` and its residual exactly."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, d)) * 1e-2).astype(np.float32)
+    x[0] = 0.0
+    xj, xt = _pair(x, dtype)
+    scale = np.abs(np.asarray(xt.float())).max(axis=1)
+    u = rng.random((n, d), dtype=np.float32)
+    q = ops.stochastic_quantize(xt, torch.tensor(scale), torch.tensor(u),
+                                levels=levels)
+    pallas = jops.stochastic_quantize(xj, jnp.asarray(scale), jnp.asarray(u),
+                                      levels=levels, block_n=4, block_d=128)
+    oracle = jref.stochastic_quantize_ref(xj, jnp.asarray(scale),
+                                          jnp.asarray(u), levels)
+    assert q.dtype == torch.int32
+    assert np.array_equal(q.numpy(), np.asarray(pallas))
+    assert np.array_equal(q.numpy(), np.asarray(oracle))
+    assert not q[0].any() and int(q.abs().max()) <= levels
+    x_hat, res = ops.quantize_roundtrip(xt, torch.tensor(scale),
+                                        torch.tensor(u), levels=levels)
+    want = np.asarray(jref.dequantize_ref(pallas, jnp.asarray(scale),
+                                          levels))
+    assert np.array_equal(x_hat.numpy(), want)
+    assert np.array_equal(res.numpy(), np.asarray(xt.float()) - want)
+
+
+def _features_inputs(m, d, seed, dtype):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((m, d)).astype(np.float32)
+    refs = rng.standard_normal((m, d)).astype(np.float32)
+    gj, gt = _pair(g, dtype)
+    rj, rt = _pair(refs, dtype)
+    w = (rng.random(m) < 0.8).astype(np.float32)
+    gbar = (w @ np.asarray(gt.float())) / max(w.sum(), 1.0)
+    norms = np.linalg.norm(np.asarray(gt.float()), axis=1)
+    med = np.float32(np.median(norms))
+    return gj, gt, rj, rt, gbar.astype(np.float32), med, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d,seed,case", [
+    (1, 7, 0, "plain"), (7, 130, 1, "plain"), (12, 1290, 2, "plain"),
+    (6, 300, 3, "all_masked"), (5, 200, 4, "nan_med"),
+    (5, 200, 5, "zero_med")])
+def test_trust_features_matches_pallas(m, d, seed, case, dtype):
+    """Features equal to the Pallas kernel (interpret mode, padded
+    blocks) and its oracle within 1e-5 fp32 / 5e-2 bf16: one row, every
+    row masked (all zero), and a NaN or zero median (sanitized to 1)."""
+    gj, gt, rj, rt, gbar, med, w = _features_inputs(m, d, seed, dtype)
+    if case == "all_masked":
+        w[:] = 0.0
+    med = {"nan_med": np.float32(np.nan), "zero_med": np.float32(0.0)
+           }.get(case, med)
+    got = ops.trust_features(gt, rt, torch.tensor(gbar), torch.tensor(med),
+                             torch.tensor(w))
+    pallas = jops.trust_features(gj, rj, jnp.asarray(gbar), jnp.asarray(med),
+                                 jnp.asarray(w), block_n=4, block_d=128)
+    oracle = jref.trust_features_ref(gj, rj, jnp.asarray(gbar),
+                                     jnp.asarray(med), jnp.asarray(w))
+    assert got.shape == (m, 4) and got.dtype == torch.float32
+    _close(got, pallas, _TOL[dtype])
+    _close(got, oracle, _TOL[dtype])
+    if case == "all_masked":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_trust_features_cloud_mode_matches_client_features(seed):
+    """Own-cloud references gathered per row through ``ref_idx``: the
+    engine's call, ``client_features(ll, ref_ll[cloud], …)``."""
+    rng = np.random.default_rng(seed)
+    m, k, L = 12, 3, 1290
+    g = rng.standard_normal((m, L)).astype(np.float32)
+    refs = rng.standard_normal((k, L)).astype(np.float32)
+    cloud = rng.integers(0, k, m)
+    w = (rng.random(m) < 0.8).astype(np.float32)
+    gbar = (w @ g) / max(w.sum(), 1.0)
+    med = np.float32(np.median(np.linalg.norm(g, axis=1)))
+    want = jfeatures.client_features(
+        jnp.asarray(g), jnp.asarray(refs)[cloud], jnp.asarray(gbar),
+        jnp.asarray(med), jnp.asarray(w))
+    got = ops.trust_features(torch.tensor(g), torch.tensor(refs),
+                             torch.tensor(gbar), torch.tensor(med),
+                             torch.tensor(w), ref_idx=torch.tensor(cloud))
+    _close(got, want, 1e-5)

@@ -6,7 +6,7 @@ package, so it runs on the GPU machine:
 
 (``--noconftest``: the suite's conftest imports JAX). Without a CUDA
 device every test skips. Tolerances: 1e-5 in fp32 and 5e-2 in bf16
-(sums in another order), top-k exact."""
+(sums in another order); top-k and QSGD (levels and round trip) exact."""
 import numpy as np
 import pytest
 import torch
@@ -77,3 +77,45 @@ def test_cuda_topk_mask_matches_plain_exactly(cuda):
     yb = y.to(torch.bfloat16)
     assert torch.equal(ops.topk_mask(yb, thr[:2]),
                        ops.topk_mask_plain(yb, thr[:2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [30, 3])
+def test_cuda_stochastic_quantize_matches_plain_exactly(cuda, rows):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    y = torch.randn(rows, 545_098, generator=gen, device=cuda) * 1e-3
+    y[0] = 0.0                                    # a zero row: q = 0
+    u = torch.rand(rows, 545_098, generator=gen, device=cuda)
+    scale = torch.amax(y.abs(), dim=1)
+    before = ops.stochastic_quantize.launches
+    for levels in (1, 15):
+        assert torch.equal(
+            ops.stochastic_quantize(y, scale, u, levels=levels),
+            ops.stochastic_quantize_plain(y, scale, u, levels))
+        for a, b in zip(ops.quantize_roundtrip(y, scale, u, levels=levels),
+                        ops.quantize_roundtrip_plain(y, scale, u, levels)):
+            assert torch.equal(a, b)
+    yb = y.to(torch.bfloat16)
+    assert torch.equal(ops.stochastic_quantize(yb, scale, u, levels=15),
+                       ops.stochastic_quantize_plain(yb, scale, u, 15))
+    assert ops.stochastic_quantize.launches == before + 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_trust_features_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    g = torch.randn(30, 1290, generator=gen, device=cuda).to(_TDT[dtype])
+    refs = torch.randn(3, 1290, generator=gen, device=cuda).to(_TDT[dtype])
+    idx = torch.arange(3, device=cuda).repeat_interleave(10)
+    w = (torch.rand(30, generator=gen, device=cuda) < 0.8).float()
+    gbar = (w @ g.float()) / w.sum().clamp(min=1.0)
+    med = torch.linalg.vector_norm(g.float(), dim=1).median()
+    nan = torch.tensor(float("nan"), device=cuda)
+    before = ops.trust_features.launches
+    for r, ix, md in ((refs, idx, med), (refs[idx], None, med),
+                      (refs, idx, nan), (refs, idx, med * 0)):
+        _close(ops.trust_features(g, r, gbar, md, w, ref_idx=ix),
+               ops.trust_features_plain(g, r, gbar, md, w, ref_idx=ix),
+               _TOL[dtype])
+    assert ops.trust_features.launches == before + 4

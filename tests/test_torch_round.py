@@ -25,6 +25,10 @@ from repro.federated import client as jclient
 from repro.federated import engine as jengine
 from repro.federated.simulation import make_data as jmake_data
 from repro.federated.simulation import make_topology as jmake_topology
+from _torch_replay import flat as _flat
+from _torch_replay import minibatch_idx as _minibatch_idx
+from _torch_replay import reference_draws as _reference_draws
+from _torch_replay import rel as _rel
 from repro_torch import convert
 from repro_torch.compress.topk import TopKCodec
 from repro_torch.configs.base import FLConfig
@@ -43,41 +47,6 @@ _FL = dict(n_clouds=3, clients_per_cloud=4, clients_per_round=6,
            attack="label_flip", malicious_frac=0.3, compressor="topk",
            compress_ratio=0.1, link_policy="cross_only")
 _DATA = dict(n_samples=600, samples_per_client=16)
-
-
-def _rel(a, b) -> float:
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
-
-
-def _flat(params) -> np.ndarray:
-    return np.concatenate([np.asarray(params[k]).ravel()
-                           for k in sorted(params)])
-
-
-def _minibatch_idx(key, total: int, batch: int, n: int) -> np.ndarray:
-    """(total, batch) indices exactly as the reference's LocalTrain draws
-    them: ``split(key, total)``, then ``randint`` per step."""
-    ks = jax.random.split(key, total)
-    return np.asarray(jax.vmap(
-        lambda k: jax.random.randint(k, (batch,), 0, n))(ks))
-
-
-def _reference_draws(seed: int, t: int, n: int, steps: int, batch: int,
-                     n_samples: int, ref_steps: int, n_ref: int
-                     ) -> tengine.RoundDraws:
-    """The reference engine's round-t randomness, re-derived from its key
-    schedule (engine.py: round_key, fold 131 for selection noise,
-    split(key, N)[i] per client, the round key itself for the refs)."""
-    key = jengine.round_key(jnp.int32(seed), jnp.int32(t))
-    noise = jax.random.normal(jax.random.fold_in(key, 131), (n,),
-                              jnp.float32)
-    keys = jax.random.split(key, n)
-    cidx = np.stack([_minibatch_idx(keys[i], steps, batch, n_samples)
-                     for i in range(n)])
-    ridx = _minibatch_idx(key, ref_steps, tengine.REF_BATCH, n_ref)
-    return tengine.RoundDraws(torch.tensor(np.asarray(noise)),
-                              torch.tensor(cidx), torch.tensor(ridx))
 
 
 def test_cnn_and_local_train_match_reference():
@@ -141,9 +110,9 @@ def test_three_rounds_match_reference(monkeypatch):
         jax.debug.callback(lambda v: captured_j.append(np.asarray(v)), x)
         return orig_j(self, x, key, row_ids)
 
-    def spy_t(self, x):
+    def spy_t(self, x, noise=None):
         captured_t.append(x.clone())
-        return orig_t(self, x)
+        return orig_t(self, x, noise)
 
     monkeypatch.setattr(JTopKCodec, "roundtrip", spy_j)
     monkeypatch.setattr(TopKCodec, "roundtrip", spy_t)
@@ -233,9 +202,9 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    dict(aggregator="fedavg"), dict(attack="sign_flip"),
-    dict(compressor="qsgd"), dict(trust_features="multi"),
-    dict(link_policy="all")])
+    dict(aggregator="fedavg"), dict(aggregator="krum"),
+    dict(aggregator="trimmed_mean"), dict(aggregator="median"),
+    dict(aggregator="fltrust")])
 def test_unported_configs_raise(override):
     fl = FLConfig(**{**_FL, **override})
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
