@@ -10,43 +10,58 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with nvcc for sm_90a (timed; registers and spills from ptxas);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (exact for topk_mask and stochastic_quantize,
-   1e-5 in fp32 and 5e-2 in bf16 for the others), then device times
-   (CUDA graph replays between CUDA events, median of repeats) of the
-   kernel's wrapper, the plain version and, where one PyTorch call
-   computes the same function, that call (a yardstick the port never
-   calls), and the wrapper's eager time from Python (``call_ms``, launch
-   overhead included);
-4. agreement: two rounds of each path at a small configuration on the
+   1e-5 in fp32 and 5e-2 in bf16 for the others; linear_scan also at a
+   ragged (3, 1000, 130)), then device times (CUDA graph replays between
+   CUDA events, median of repeats) of the kernel's wrapper, the plain
+   version and, where one PyTorch call computes the same function, that
+   call (a yardstick the port never calls), and the wrapper's eager time
+   from Python (``call_ms``, launch overhead included);
+4. agreement: two rounds of each FL path at a small configuration on the
    card against the same rounds on the CPU (plain versions), from one
    initial state and one set of draws — masks and bytes exact,
    reputation and params (and, on the defense path, the feature
-   separability) within 1e-4 relative;
-5. main paths, each five rounds of ``FLServer.run_round`` (the loop
-   ``run_simulation`` runs) at full width — 3 clouds x 30 clients, 30
-   selected, the paper's CNN (D = 545,098) — with every launch counter
-   reset just before the path and read just after it:
-   * HEADLINE (README): label_flip, top-k 0.1 on cross-cloud links;
-     trust_score, weighted_agg and topk_mask once per round, the QSGD
-     and feature kernels never;
-   * DEFENSE (README "Multi-feature Byzantine defense"): alie_norm,
-     the multi-feature gate, QSGD (15 levels) on every client and edge
-     uplink; trust_score, weighted_agg and trust_features once per
-     round, stochastic_quantize twice (client wire, edge wire), topk_mask
-     never; feature weights finite and summing to 1, residuals finite;
-   params finite; bytes and $ equal the cost model's for each delivered
-   mask; then the test accuracy and rounds/s of each path.
+   separability) within 1e-4 relative; and the serve path in fp32 at
+   the test configuration (recurrentgemma-2b's layout at d_model 128,
+   8 layers, window 64): the prefill of two 96-token prompts on the card
+   against the CPU from the same weights — last logits and every cache
+   leaf within 1e-4 relative, ``pos`` tags exact — then 4 greedy decode
+   steps with equal tokens and logits within 1e-4;
+5. main paths, with every launch counter reset just before the path and
+   read just after it:
+   * HEADLINE and DEFENSE, each five rounds of ``FLServer.run_round``
+     (the loop ``run_simulation`` runs) at full width — 3 clouds x 30
+     clients, 30 selected, the paper's CNN (D = 545,098):
+     - HEADLINE (README): label_flip, top-k 0.1 on cross-cloud links;
+       trust_score, weighted_agg and topk_mask once per round, the QSGD,
+       feature and scan kernels never;
+     - DEFENSE (README "Multi-feature Byzantine defense"): alie_norm,
+       the multi-feature gate, QSGD (15 levels) on every client and edge
+       uplink; trust_score, weighted_agg and trust_features once per
+       round, stochastic_quantize twice (client wire, edge wire),
+       topk_mask and linear_scan never; feature weights finite and
+       summing to 1, residuals finite;
+     params finite; bytes and $ equal the cost model's for each
+     delivered mask; then the test accuracy and rounds/s of each path;
+   * SERVE: ``repro_torch.launch.serve.serve`` at recurrentgemma-2b's
+     full published widths and all 26 layers, bf16, weights from seed 0,
+     4 slots, 8 requests of a 4096-token prompt (twice the window) and
+     16 greedy tokens; linear_scan exactly once per "R" layer per
+     prefill (8 x 18 = 144), every FL kernel never; logits finite,
+     tokens in the vocabulary; the parameter count held, peak memory,
+     prefill ms per request and decode tokens/s.
 
 Prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line. Exits non-zero without a CUDA device, and when
 ``src/repro_torch`` is not beside this script.
 
-    python3 chip_smoke.py --profile  # build, then trace 2 steady rounds
+    python3 chip_smoke.py --profile  # build, then trace steady work
 
-traces two rounds of each path with ``torch.profiler`` and prints where
+traces two steady rounds of each FL path, and one steady prefill and 16
+decode steps of the serve path, with ``torch.profiler`` and prints where
 the device time goes (kernel groups, top kernels, idle share of the wall
-time) instead of running the checks. ``--out DIR``
-also writes the details (``chip_smoke.json``; with ``--profile``,
-``profile.json`` and the Chrome trace ``round_trace.json``) into DIR.
+time) instead of running the checks. ``--out DIR`` also writes the
+details (``chip_smoke.json``; with ``--profile``, ``profile.json`` and
+the Chrome traces) into DIR.
 """
 from __future__ import annotations
 
@@ -68,6 +83,7 @@ REPLACES = {
     "topk_mask": "src/repro/kernels/topk_mask.py:48",
     "stochastic_quantize": "src/repro/kernels/quantize.py:58",
     "trust_features": "src/repro/kernels/trust_features.py:92",
+    "linear_scan": "src/repro/kernels/linear_scan.py:54",
 }
 # the test suite's small topology at the same headline knobs
 SMALL = dict(n_clouds=3, clients_per_cloud=4, clients_per_round=6,
@@ -79,10 +95,16 @@ DEFENSE = dict(attack="alie_norm", malicious_frac=0.3, trust_features="multi",
 # launches per round of each kernel on each path (0: never)
 PATHS = {
     "headline": (HEADLINE, dict(trust_score=1, weighted_agg=1, topk_mask=1,
-                                stochastic_quantize=0, trust_features=0)),
+                                stochastic_quantize=0, trust_features=0,
+                                linear_scan=0)),
     "defense": (DEFENSE, dict(trust_score=1, weighted_agg=1, topk_mask=0,
-                              stochastic_quantize=2, trust_features=1)),
+                              stochastic_quantize=2, trust_features=1,
+                              linear_scan=0)),
 }
+# the serve path: recurrentgemma-2b at full width, as the launcher runs it
+SERVE = dict(arch="recurrentgemma-2b", batch=4, requests=8, prompt_len=4096,
+             gen=16, dtype="bfloat16", seed=0)
+SERVE_PARAMS = 2_894_435_840     # weights held (w_a, w_i included)
 
 
 class PhaseError(RuntimeError):
@@ -335,6 +357,38 @@ def kernel_phase(torch, ops, dev):
             g, refs, gbar, med, w, ref_idx=seg)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"G ({m}, {L}) f32, refs ({k}, {L})")
+
+    # linear_scan: one serving prefill's (1, 4096, 2560) per "R" layer,
+    # and a ragged (3, 1000, 130) (T not a multiple of the 32 chunks, D
+    # not of the 32 lanes); a in (0.1, 0.99) as tests/test_kernels.py
+    # draws it
+    errs = {}
+    for shape in ((1, 4096, 2560), (3, 1000, 130)):
+        a = 0.1 + 0.89 * torch.rand(*shape, generator=gen, device=dev)
+        x = torch.randn(*shape, generator=gen, device=dev)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
+            ad, xd = a.to(dtype), x.to(dtype)
+            got = ops.linear_scan(ad, xd)
+            want = ops.linear_scan_plain(ad, xd)
+            check(got.dtype == dtype and close(torch, got, want, tol),
+                  f"linear_scan {shape} {dtype}: max err "
+                  f"{max_err(torch, got, want)} > {tol}")
+            errs[(shape, dtype)] = max_err(torch, got, want)
+    a = (0.1 + 0.89 * torch.rand(1, 4096, 2560, generator=gen, device=dev))
+    x = torch.randn(1, 4096, 2560, generator=gen, device=dev)
+    ab, xb = a.to(torch.bfloat16), x.to(torch.bfloat16)
+    n = a.numel()
+    b_ms, b_by = bound(3 * n * 2, 2 * n)
+    run = lambda: ops.linear_scan(ab, xb)  # noqa: E731
+    rec["linear_scan"] = dict(
+        max_abs_err=errs[((1, 4096, 2560), torch.bfloat16)],
+        max_abs_err_fp32=errs[((1, 4096, 2560), torch.float32)],
+        ms=time_ms(torch, run), call_ms=call_ms(torch, run),
+        plain_ms=time_ms(torch, lambda: ops.linear_scan_plain(ab, xb)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="a, b (1, 4096, 2560) bf16 -> h bf16",
+        fp32_ms=time_ms(torch, lambda: ops.linear_scan(a, x)),
+        fp32_bound_ms=bound(3 * n * 4, 2 * n)[0])
     return rec
 
 
@@ -395,6 +449,138 @@ def agreement_phase(torch, dev, path: str):
     check(max(worst.values()) <= 1e-4,
           f"{path}: card vs CPU drift {worst} > 1e-4")
     return worst
+
+
+def _serve_test_model():
+    """recurrentgemma-2b's layout at the test suite's width: 2 stacked
+    R, R, L cycles and a tail of two R layers, d_model 128, window 64."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models.model import Model
+    return Model(replace(reduced(get_arch("recurrentgemma-2b"), d_model=128,
+                                 layers=3), num_layers=8))
+
+
+def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
+                          steps: int = 4):
+    """The fp32 prefill of two ``t``-token prompts (t > the window, so the
+    ring wraps) and ``steps`` greedy decode steps on the card (the
+    linear_scan kernel) against the CPU (its plain version), from the
+    same weights and prompts."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+
+    model = _serve_test_model()
+    cfg = model.cfg
+    cpu = torch.device("cpu")
+    p_cpu = model.init(0, device=cpu)
+    tokens = model.dummy_batch(0, 2, t)["tokens"]
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}/{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{prefix}/{i}")
+        else:   # a copy: decode updates attention caches in place
+            yield prefix, tree.detach().cpu().clone()
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b).clamp(min=1e-30))
+
+    def run(d, params):
+        before = ops.linear_scan.launches
+        logits, cache = model.prefill(params, {"tokens": tokens.to(d)},
+                                      max_len)
+        scans = ops.linear_scan.launches - before
+        out = dict(prefill=logits.cpu(), cache=dict(leaves(cache)),
+                   scans=scans, logits=[], tokens=[])
+        tok = torch.argmax(logits, dim=-1)
+        for i in range(steps):
+            logits, cache = tfm.decode_step(params, cfg, cache, tok, t + i)
+            tok = torch.argmax(logits, dim=-1)
+            out["logits"].append(logits.cpu())
+            out["tokens"].append(tok.cpu())
+        return out
+
+    host = run(cpu, p_cpu)
+    card = run(dev, to(p_cpu, dev))
+    n_r = cfg.layer_types().count("R")
+    check(card["scans"] == n_r and host["scans"] == 0,
+          f"serve agreement: {card['scans']} scan launches on the card "
+          f"(expected {n_r}), {host['scans']} on the CPU")
+    worst = {"prefill_logits": rel(card["prefill"], host["prefill"]),
+             "cache": 0.0, "decode_logits": 0.0}
+    for name, want in host["cache"].items():
+        got = card["cache"][name]
+        if want.is_floating_point():
+            worst["cache"] = max(worst["cache"], rel(got, want))
+        else:
+            check(torch.equal(got, want), f"serve agreement: {name} differs")
+    for a, b, ta, tb in zip(card["logits"], host["logits"], card["tokens"],
+                            host["tokens"]):
+        check(torch.equal(ta, tb), f"serve agreement: greedy tokens "
+              f"{ta.tolist()} on the card, {tb.tolist()} on the CPU")
+        worst["decode_logits"] = max(worst["decode_logits"], rel(a, b))
+    check(max(worst.values()) <= 1e-4,
+          f"serve: card vs CPU drift {worst} > 1e-4")
+    worst["tokens"] = np.stack([x.numpy() for x in card["tokens"]],
+                               1).tolist()
+    return worst
+
+
+def serve_path_phase(torch, ops, dev):
+    """``launch.serve.serve`` at full width (``SERVE``), the launch
+    counters reset just before and read just after."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import serve
+
+    cfg = get_arch(SERVE["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve(SERVE["arch"], batch=SERVE["batch"],
+                requests=SERVE["requests"], prompt_len=SERVE["prompt_len"],
+                gen=SERVE["gen"], device=dev, dtype=SERVE["dtype"],
+                seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {n: 0 for n in counts}
+    want["linear_scan"] = SERVE["requests"] * cfg.layer_types().count("R")
+    check(counts == want, f"serve: launches {counts}, expected {want}")
+    check(res.n_params == SERVE_PARAMS,
+          f"serve: {res.n_params} weights, expected {SERVE_PARAMS}")
+    check(sorted(r.rid for r in res.requests)
+          == list(range(SERVE["requests"])), "serve: requests lost")
+    for r in res.requests:
+        check(r.done and len(r.generated) == SERVE["gen"]
+              and all(0 <= tok < cfg.vocab_size for tok in r.generated),
+              f"serve: request {r.rid} generated {r.generated}")
+    check(res.finite, "serve: a prefill or decode logit is not finite")
+    prefill_ms = [r.prefill_s * 1e3
+                  for r in sorted(res.requests, key=lambda r: r.rid)]
+    return counts, dict(
+        n_params=res.n_params, analytic_param_count=cfg.param_count(),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        init_s=res.init_s, wall_s=wall_s, prefill_ms=prefill_ms,
+        prefill_ms_first=prefill_ms[0],
+        prefill_ms_steady=statistics.median(prefill_ms[1:]),
+        decode_steps=res.decode_steps, decode_s=res.decode_s,
+        decode_tokens_per_s=res.decode_tokens_per_s,
+        tokens={r.rid: r.generated for r in res.requests})
 
 
 def main_path_phase(torch, ops, dev, path: str):
@@ -476,10 +662,12 @@ def main_path_phase(torch, ops, dev, path: str):
 # first match wins: cuDNN's implicit-GEMM convolutions also say "gemm"
 _GROUPS = (("port kernels", ("trust_score_kernel", "weighted_agg_kernel",
                              "topk_mask_kernel", "quantize_kernel",
-                             "trust_features_kernel")),
+                             "trust_features_kernel", "linear_scan_kernel")),
            ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
                             "Wgrad", "winograd", "implicit")),
-           ("matmul", ("gemm", "Gemm", "cutlass")),
+           ("matmul", ("gemm", "Gemm", "cutlass", "nvjet", "xmma")),
+           ("softmax / reduction", ("softmax", "Softmax", "SoftMax", "reduce",
+                                    "Reduce")),
            ("top-k / sort / index", ("topk", "TopK", "sort", "Sort", "radix",
                                      "index", "Index", "gather", "scatter")))
 
@@ -497,31 +685,21 @@ def out_dir():
     return out
 
 
-def profile_phase(torch, dev, out, path: str, rounds: int = 2):
-    """``--profile``: trace ``rounds`` steady rounds of ``path`` with
-    ``torch.profiler`` (after 2 warm-up rounds) and report the device's
-    busy time by kernel group, its idle share of the host-clock wall
-    time, and the top kernels; writes the Chrome trace to
-    ``out``/round_trace_<path>.json when ``out`` is given."""
+def _trace(torch, out, name: str, run, n: int, unit: str):
+    """Run ``run()`` (``n`` units of work) under ``torch.profiler`` and
+    report, per unit, the device's busy time by kernel group, its idle
+    share of the host-clock wall time and the top kernels; writes the
+    Chrome trace to ``out``/trace_<name>.json when ``out`` is given."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.base import FLConfig
-    from repro_torch.federated import FLServer, make_data, make_topology
-
-    fl = FLConfig(**PATHS[path][0])
-    server = FLServer(fl, make_topology(fl), make_data(fl), seed=0,
-                      device=dev)
-    for t in range(2):
-        server.run_round(t)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(2, 2 + rounds):
-            server.run_round(t)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -536,21 +714,71 @@ def profile_phase(torch, dev, out, path: str, rounds: int = 2):
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     groups = defaultdict(float)
-    for name, (us, _) in by_name.items():
+    for kname, (us, _) in by_name.items():
         group = next((g for g, keys in _GROUPS
-                      if any(k in name for k in keys)), "other")
-        groups[group] += us / rounds
+                      if any(k in kname for k in keys)), "other")
+        groups[group] += us / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     if out is not None:
-        prof.export_chrome_trace(str(out / f"round_trace_{path}.json"))
-    return dict(rounds=rounds, wall_ms_per_round=wall_us / rounds / 1e3,
-                busy_ms_per_round=busy_us / rounds / 1e3,
-                idle_share=1.0 - busy_us / wall_us,
-                kernels_per_round=len(kern) / rounds,
-                group_ms_per_round={g: us / 1e3 for g, us in groups.items()},
-                top=[dict(name=n[:120], ms_per_round=us / rounds / 1e3,
-                          launches_per_round=c / rounds)
-                     for n, (us, c) in top])
+        prof.export_chrome_trace(str(out / f"trace_{name}.json"))
+    return dict(unit=unit, n=n, wall_ms=wall_us / n / 1e3,
+                busy_ms=busy_us / n / 1e3, idle_share=1.0 - busy_us / wall_us,
+                kernels=len(kern) / n,
+                group_ms={g: us / 1e3 for g, us in groups.items()},
+                top=[dict(name=k[:120], ms=us / n / 1e3, launches=c / n)
+                     for k, (us, c) in top])
+
+
+def profile_phase(torch, dev, out, path: str, rounds: int = 2):
+    """``--profile``: ``rounds`` steady rounds of FL ``path`` after 2
+    warm-up rounds, traced (figures per round)."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.federated import FLServer, make_data, make_topology
+
+    fl = FLConfig(**PATHS[path][0])
+    server = FLServer(fl, make_topology(fl), make_data(fl), seed=0,
+                      device=dev)
+    for t in range(2):
+        server.run_round(t)
+
+    def run():
+        for t in range(2, 2 + rounds):
+            server.run_round(t)
+    return _trace(torch, out, path, run, rounds, "round")
+
+
+def profile_serve(torch, dev, out):
+    """``--profile``: the serve path at full width — one steady prefill
+    of a 4096-token prompt (after a warm-up prefill and 2 decode steps)
+    and then ``SERVE["gen"]`` decode steps, traced apart (figures per
+    prefill and per decode step)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+
+    model = build_model(SERVE["arch"])
+    params = model.init(SERVE["seed"], device=dev, dtype=SERVE["dtype"])
+    t, gen = SERVE["prompt_len"], SERVE["gen"]
+    max_len = t + gen
+    tokens = model.dummy_batch(0, 1, t, device=dev)["tokens"]
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    for i in range(2):
+        logits, cache = tfm.decode_step(params, model.cfg, cache,
+                                        torch.argmax(logits, -1), t + i)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(
+            params, {"tokens": tokens}, max_len)
+
+    def decode():
+        logits, cache = state["logits"], state["cache"]
+        for i in range(gen):
+            logits, cache = tfm.decode_step(params, model.cfg, cache,
+                                            torch.argmax(logits, -1), t + i)
+    return {"serve_prefill": _trace(torch, out, "serve_prefill", prefill, 1,
+                                    f"prefill of {t} tokens"),
+            "serve_decode": _trace(torch, out, "serve_decode", decode, gen,
+                                   "decode step")}
 
 
 def main() -> int:
@@ -583,6 +811,7 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         prof = {path: profile_phase(torch, dev, out, path) for path in PATHS}
+        prof.update(profile_serve(torch, dev, out))
         if out is not None:
             (out / "profile.json").write_text(json.dumps(prof, indent=1))
         print(json.dumps(prof, indent=1))
@@ -594,6 +823,9 @@ def main() -> int:
         print(f"kernel {name}: {r}", flush=True)
     worst = {path: agreement_phase(torch, dev, path) for path in PATHS}
     print(f"agreement card vs CPU over 2 small rounds: {worst}", flush=True)
+    worst["serve"] = serve_agreement_phase(torch, ops, dev)
+    print(f"agreement card vs CPU, serve prefill + 4 decode steps (fp32, "
+          f"test configuration): {worst['serve']}", flush=True)
     counts, main = {}, {}
     for path in PATHS:
         counts[path], main[path] = main_path_phase(torch, ops, dev, path)
@@ -603,6 +835,15 @@ def main() -> int:
               f"over {ROUNDS} rounds, "
               f"{main[path]['steady_rounds_per_s']:.3f} after the first",
               flush=True)
+    counts["serve"], main["serve"] = serve_path_phase(torch, ops, dev)
+    sv = main["serve"]
+    print(f"main path serve: launches {counts['serve']}; {sv}", flush=True)
+    print(f"main path serve ({card}): {sv['n_params']} weights held, peak "
+          f"{sv['peak_gib']:.3f} GiB, prefill of {SERVE['prompt_len']} "
+          f"tokens {sv['prefill_ms_first']:.3f} ms first, "
+          f"{sv['prefill_ms_steady']:.3f} ms steady (median of the other "
+          f"{SERVE['requests'] - 1}), decode {sv['decode_tokens_per_s']:.3f} "
+          f"tokens/s at batch 1 per slot", flush=True)
 
     # launches: the sum over the paths' runs (each read right after its
     # path, counters reset right before); per path beside it

@@ -1,13 +1,17 @@
 """Carry weights and round state across between the reference and the
 port as numpy arrays. The port keeps the reference's parameter layout
-(conv HWIO, dense (in, out), sorted keys), so conversion is a copy."""
+(conv HWIO, dense (in, out), sorted keys), so conversion is a copy; for
+the model zoo it also unstacks the reference's ``scanned``/``tail``
+layer groups into the port's per-layer list, and stacks them back."""
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import math
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.engine import RoundState
 
 
@@ -51,3 +55,96 @@ def round_state_from_numpy(params: Mapping[str, np.ndarray],
                       cum_intra_bytes=zero, cum_cross_bytes=zero,
                       feat_sep=dev(empty if feat_sep is None else feat_sep),
                       seed=int(seed))
+
+
+# ---------------------------------------------------------------------------
+# model zoo: the reference's stacked layer groups <-> the port's list
+
+def _map(fn: Callable, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _p_eff(cfg: ModelConfig) -> int:
+    """The reference's period of the per-layer signature
+    (``repro/models/transformer.py:_p_eff``)."""
+    p = len(cfg.block_pattern)
+    if cfg.n_experts > 0 and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    return min(p, cfg.num_layers)
+
+
+def _unstack(tree: Mapping[str, Any], cfg: ModelConfig) -> List[Any]:
+    """Layer i of the reference's {"scanned": [...], "tail": [...]}."""
+    p = _p_eff(cfg)
+    r = cfg.num_layers // p
+    return [_map(lambda a, i=i: np.asarray(a)[i // p], tree["scanned"][i % p])
+            if i < r * p else tree["tail"][i - r * p]
+            for i in range(cfg.num_layers)]
+
+
+def _stack(layers: List[Any], cfg: ModelConfig) -> Dict[str, List[Any]]:
+    p = _p_eff(cfg)
+    r = cfg.num_layers // p
+
+    def stack(group):
+        first = group[0]
+        if isinstance(first, Mapping):
+            return {k: stack([g[k] for g in group]) for k in first}
+        return np.stack(group)
+    return {"scanned": [stack([layers[i * p + j] for i in range(r)])
+                        for j in range(p)] if r > 0 else [],
+            "tail": layers[r * p:]}
+
+
+def _from_np(device, dtype) -> Callable:
+    def conv(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a, device=device)
+        return torch.tensor(a.astype(np.float32), device=device).to(dtype)
+    return conv
+
+
+def _to_np(t: torch.Tensor) -> np.ndarray:
+    """A copy (decode updates attention caches in place)."""
+    t = t.detach().cpu()
+    return (t if not t.is_floating_point() else t.float()).numpy().copy()
+
+
+def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, *,
+                            device, dtype=torch.float32) -> Dict[str, Any]:
+    """Reference model params (numpy leaves, e.g. ``jax.tree.map(
+    np.asarray, params)``) -> the port's {"embed", "layers": [...],
+    "final_norm"[, "lm_head"]} in ``dtype`` on ``device``."""
+    conv = _from_np(device, dtype)
+    out = {k: conv(v) for k, v in tree.items()
+           if k not in ("scanned", "tail")}
+    out["layers"] = [_map(conv, lp) for lp in _unstack(tree, cfg)]
+    return out
+
+
+def model_params_to_numpy(params: Mapping[str, Any], cfg: ModelConfig
+                          ) -> Dict[str, Any]:
+    """The port's model params -> the reference's stacked tree (numpy
+    leaves, float32 for floating tensors)."""
+    out = {k: _to_np(v) for k, v in params.items() if k != "layers"}
+    out.update(_stack([_map(_to_np, lp) for lp in params["layers"]], cfg))
+    return out
+
+
+def model_cache_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, *,
+                           device, dtype=torch.float32) -> Dict[str, Any]:
+    """A reference decode cache {"scanned", "tail"} (numpy leaves) -> the
+    port's {"layers": [...]} (``pos`` stays int32)."""
+    conv = _from_np(device, dtype)
+    return {"layers": [_map(conv, lc) for lc in _unstack(tree, cfg)]}
+
+
+def model_cache_to_numpy(cache: Mapping[str, Any], cfg: ModelConfig
+                         ) -> Dict[str, Any]:
+    """The port's decode cache -> the reference's stacked tree."""
+    return _stack([_map(_to_np, lc) for lc in cache["layers"]], cfg)

@@ -11,7 +11,9 @@ each beside its plain PyTorch version:
   dequantize and error-feedback residual fused (replaces
   ``repro/kernels/quantize.py:stochastic_quantize``);
 * ``trust_features`` — the multi-feature trust pass (replaces
-  ``repro/kernels/trust_features.py:trust_features``).
+  ``repro/kernels/trust_features.py:trust_features``);
+* ``linear_scan`` — the RG-LRU diagonal recurrence (replaces
+  ``repro/kernels/linear_scan.py:linear_scan``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built by ``_build`` at first use) or raises, and

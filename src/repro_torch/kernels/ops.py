@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
 from repro_torch.kernels.stochastic_quantize import (
     quantize_roundtrip, quantize_roundtrip_plain, stochastic_quantize,
     stochastic_quantize_plain)
@@ -21,7 +22,7 @@ from repro_torch.kernels.weighted_agg import (agg_weights, weighted_agg,
 # one counter per kernel (quantize_roundtrip launches stochastic_quantize's)
 KERNELS = {"trust_score": trust_score, "weighted_agg": weighted_agg,
            "topk_mask": topk_mask, "stochastic_quantize": stochastic_quantize,
-           "trust_features": trust_features}
+           "trust_features": trust_features, "linear_scan": linear_scan}
 
 
 def reset_launch_counts() -> None:
@@ -39,5 +40,6 @@ __all__ = ["trust_score", "trust_score_plain", "weighted_agg",
            "topk_mask_plain", "row_threshold", "stochastic_quantize",
            "stochastic_quantize_plain", "quantize_roundtrip",
            "quantize_roundtrip_plain", "trust_features",
-           "trust_features_plain", "KERNELS", "reset_launch_counts",
+           "trust_features_plain", "linear_scan", "linear_scan_plain",
+           "KERNELS", "reset_launch_counts",
            "launch_counts"]

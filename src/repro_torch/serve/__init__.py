@@ -1,0 +1,4 @@
+from repro_torch.serve.decode import (greedy_generate, make_prefill_step,
+                                      make_serve_step)
+
+__all__ = ["greedy_generate", "make_prefill_step", "make_serve_step"]

@@ -260,3 +260,60 @@ def test_trust_features_cloud_mode_matches_client_features(seed):
                              torch.tensor(gbar), torch.tensor(med),
                              torch.tensor(w), ref_idx=torch.tensor(cloud))
     _close(got, want, 1e-5)
+
+
+# linear_scan: tests/test_kernels.py's property-style shapes (B 1–5,
+# T 1–70, D 1–40) at fixed seeds, through the wrapper (the plain
+# log-depth scan on the CPU). fp32 within 2e-5 (tests/test_kernels.py's
+# tolerance: three scan orders), bf16 within 5e-2.
+_SCAN_SHAPES = [(1, 1, 1), (2, 9, 3), (3, 33, 17), (4, 64, 32), (5, 70, 40),
+                (1, 70, 1), (2, 2, 40)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,d", _SCAN_SHAPES)
+def test_linear_scan_matches_pallas_and_ref(b, t, d, dtype):
+    rng = np.random.default_rng(10_000 * b + 100 * t + d)
+    aj, at = _pair(rng.uniform(0.1, 0.99, (b, t, d)).astype(np.float32),
+                   dtype)
+    xj, xt = _pair(rng.standard_normal((b, t, d)).astype(np.float32), dtype)
+    got = ops.linear_scan(at, xt)
+    assert got.shape == (b, t, d) and got.dtype == _TDT[dtype]
+    got = got.float()
+    tol = 2e-5 if dtype == "float32" else _TOL[dtype]
+    _close(got, jops.linear_scan(aj, xj, chunk=16, block_b=2), tol)
+    _close(got, jref.linear_scan_ref(aj, xj), tol)
+
+
+def test_linear_scan_is_true_recurrence():
+    """Directed: against an explicit loop (tests/test_kernels.py)."""
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0.5, 0.95, (2, 9, 3)).astype(np.float32)
+    b = rng.normal(size=(2, 9, 3)).astype(np.float32)
+    h = np.zeros((2, 3), np.float32)
+    expect = np.zeros_like(b)
+    for t in range(9):
+        h = a[:, t] * h + b[:, t]
+        expect[:, t] = h
+    out = ops.linear_scan(torch.tensor(a), torch.tensor(b))
+    np.testing.assert_allclose(out.numpy(), expect, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "mixed", "layout"])
+def test_linear_scan_refuses_off_cpu_what_the_kernel_does_not_take(case):
+    """Off the CPU the wrapper checks and launches, never falls back to
+    the plain version: (meta tensors reach the checks without a card)."""
+    a = torch.empty(2, 8, 4, device="meta")
+    b = {"shape": torch.empty(2, 8, 5, device="meta"),
+         "dtype": torch.empty(2, 8, 4, device="meta", dtype=torch.float16),
+         "mixed": torch.empty(2, 8, 4, device="meta", dtype=torch.bfloat16),
+         "layout": torch.empty(2, 4, 8, device="meta").transpose(1, 2)}[case]
+    if case == "dtype":
+        a = a.to(torch.float16)
+    before = ops.linear_scan.launches
+    with pytest.raises(ValueError, match="linear_scan"):
+        ops.linear_scan(a, b)
+    assert ops.linear_scan.launches == before
+    with pytest.raises(ValueError, match="linear_scan"):
+        ops.linear_scan(torch.zeros(2, 8, 4), torch.zeros(2, 8, 4,
+                                                          device="meta"))

@@ -6,7 +6,8 @@ package, so it runs on the GPU machine:
 
 (``--noconftest``: the suite's conftest imports JAX). Without a CUDA
 device every test skips. Tolerances: 1e-5 in fp32 and 5e-2 in bf16
-(sums in another order); top-k and QSGD (levels and round trip) exact."""
+(sums and scans in another order); top-k and QSGD (levels and round
+trip) exact."""
 import numpy as np
 import pytest
 import torch
@@ -119,3 +120,21 @@ def test_cuda_trust_features_matches_plain(cuda, dtype):
                ops.trust_features_plain(g, r, gbar, md, w, ref_idx=ix),
                _TOL[dtype])
     assert ops.trust_features.launches == before + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d", [(4096, 2560), (1000, 130), (31, 33),
+                                 (1, 1)])
+def test_cuda_linear_scan_matches_plain(cuda, dtype, t, d):
+    """B = 1 as the serving prefill gives it, at its shape and at ragged
+    T (not a multiple of the 32 chunks) and D (not of the 32 lanes)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = (0.1 + 0.89 * torch.rand(1, t, d, generator=gen, device=cuda)
+         ).to(_TDT[dtype])
+    b = torch.randn(1, t, d, generator=gen, device=cuda).to(_TDT[dtype])
+    before = ops.linear_scan.launches
+    got = ops.linear_scan(a, b)
+    assert got.dtype == _TDT[dtype] and got.shape == (1, t, d)
+    _close(got, ops.linear_scan_plain(a, b), _TOL[dtype])
+    assert ops.linear_scan.launches == before + 1
