@@ -11,11 +11,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (exact for topk_mask and stochastic_quantize,
    1e-5 in fp32 and 5e-2 in bf16 for the others; linear_scan also at a
-   ragged (3, 1000, 130)), then device times (CUDA graph replays between
-   CUDA events, median of repeats) of the kernel's wrapper, the plain
-   version and, where one PyTorch call computes the same function, that
-   call (a yardstick the port never calls), and the wrapper's eager time
-   from Python (``call_ms``, launch overhead included);
+   ragged (3, 1000, 130) and a multi-segment (1, 12295, 64)), then
+   device times (CUDA graph replays between CUDA events, median of
+   repeats) of the kernel's wrapper, the plain version and, where one
+   PyTorch call computes the same function, that call (a yardstick the
+   port never calls), and the wrapper's eager time from Python
+   (``call_ms``, launch overhead included); linear_scan also cold
+   (``ms_cold``: the calls rotate over 4 input sets, 168 MB in bf16, so
+   no call finds its inputs in the 50 MB L2), in bf16 and fp32;
 4. agreement: two rounds of each FL path at a small configuration on the
    card against the same rounds on the CPU (plain versions), from one
    initial state and one set of draws — masks and bytes exact,
@@ -65,6 +68,7 @@ the Chrome traces) into DIR.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -156,6 +160,17 @@ def time_ms(torch, fn, repeats: int = 21, inner: int = 10) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(torch, graph.replay, repeats, inner)
+
+
+def time_cold_ms(torch, fn, sets, repeats: int = 21) -> float:
+    """:func:`time_ms` of ``fn(*inputs)`` with each call's inputs cold in
+    the 50 MB L2: the captured calls cycle through ``sets`` (more bytes
+    in all than the L2 holds), so a call's inputs were last read
+    ``len(sets) - 1`` calls earlier. Twice ``len(sets)`` calls a graph
+    keep the cycle unbroken from one replay to the next."""
+    calls = itertools.cycle(sets)
+    return time_ms(torch, lambda: fn(*next(calls)), repeats,
+                   inner=2 * len(sets))
 
 
 def call_ms(torch, fn, repeats: int = 21, inner: int = 10) -> float:
@@ -358,12 +373,14 @@ def kernel_phase(torch, ops, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"G ({m}, {L}) f32, refs ({k}, {L})")
 
-    # linear_scan: one serving prefill's (1, 4096, 2560) per "R" layer,
-    # and a ragged (3, 1000, 130) (T not a multiple of the 32 chunks, D
-    # not of the 32 lanes); a in (0.1, 0.99) as tests/test_kernels.py
+    # linear_scan: one serving prefill's (1, 4096, 2560) per "R" layer;
+    # a ragged (3, 1000, 130) (T not a multiple of a cluster's steps, D
+    # not of the 32 channels a block, rows not 16-byte aligned: the
+    # plain-load staging); and (1, 12295, 64), several segments of a
+    # cluster in either dtype; a in (0.1, 0.99) as tests/test_kernels.py
     # draws it
     errs = {}
-    for shape in ((1, 4096, 2560), (3, 1000, 130)):
+    for shape in ((1, 4096, 2560), (3, 1000, 130), (1, 12295, 64)):
         a = 0.1 + 0.89 * torch.rand(*shape, generator=gen, device=dev)
         x = torch.randn(*shape, generator=gen, device=dev)
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
@@ -374,9 +391,8 @@ def kernel_phase(torch, ops, dev):
                   f"linear_scan {shape} {dtype}: max err "
                   f"{max_err(torch, got, want)} > {tol}")
             errs[(shape, dtype)] = max_err(torch, got, want)
-    a = (0.1 + 0.89 * torch.rand(1, 4096, 2560, generator=gen, device=dev))
-    x = torch.randn(1, 4096, 2560, generator=gen, device=dev)
-    ab, xb = a.to(torch.bfloat16), x.to(torch.bfloat16)
+    sets = scan_inputs(torch, gen, dev)
+    (a, x), (ab, xb) = sets[torch.float32][0], sets[torch.bfloat16][0]
     n = a.numel()
     b_ms, b_by = bound(3 * n * 2, 2 * n)
     run = lambda: ops.linear_scan(ab, xb)  # noqa: E731
@@ -384,12 +400,35 @@ def kernel_phase(torch, ops, dev):
         max_abs_err=errs[((1, 4096, 2560), torch.bfloat16)],
         max_abs_err_fp32=errs[((1, 4096, 2560), torch.float32)],
         ms=time_ms(torch, run), call_ms=call_ms(torch, run),
+        ms_cold=time_cold_ms(torch, ops.linear_scan, sets[torch.bfloat16]),
         plain_ms=time_ms(torch, lambda: ops.linear_scan_plain(ab, xb)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="a, b (1, 4096, 2560) bf16 -> h bf16",
         fp32_ms=time_ms(torch, lambda: ops.linear_scan(a, x)),
-        fp32_bound_ms=bound(3 * n * 4, 2 * n)[0])
+        fp32_ms_cold=time_cold_ms(torch, ops.linear_scan,
+                                  sets[torch.float32]),
+        fp32_bound_ms=bound(3 * n * 4, 2 * n)[0],
+        # not the scan: an elementwise add moves the same bytes (reads a
+        # and b once, writes one output once), so it shows the rate that
+        # the scan's traffic reaches on this card, below the data sheet's
+        add_ms_cold=time_cold_ms(torch, torch.add, sets[torch.bfloat16]))
     return rec
+
+
+SCAN_SETS = 4     # rotated input sets for cold timing: 168 MB in bf16
+
+
+def scan_inputs(torch, gen, dev):
+    """{dtype: [(a, b)] * SCAN_SETS}: the serving prefill's (1, 4096,
+    2560) scan inputs, drawn in fp32 and rounded to bf16."""
+    sets = {torch.float32: [], torch.bfloat16: []}
+    for _ in range(SCAN_SETS):
+        a = 0.1 + 0.89 * torch.rand(1, 4096, 2560, generator=gen, device=dev)
+        x = torch.randn(1, 4096, 2560, generator=gen, device=dev)
+        sets[torch.float32].append((a, x))
+        sets[torch.bfloat16].append((a.to(torch.bfloat16),
+                                     x.to(torch.bfloat16)))
+    return sets
 
 
 def state_to(state, dev):
@@ -857,6 +896,9 @@ def main() -> int:
                     bound_by=rec[n]["bound_by"],
                     library_ms=rec[n]["library_ms"])
                for n in REPLACES]
+    for k in kernels:       # the cold-L2 time where phase 3 took one
+        if "ms_cold" in rec[k["name"]]:
+            k["ms_cold"] = rec[k["name"]]["ms_cold"]
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, kernels=rec, launches=counts, agreement=worst,

@@ -14,7 +14,7 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BATCH = 65535          # gridDim.y
+_MAX_BATCH = 65535          # gridDim.z
 
 
 def linear_scan_plain(a: Tensor, b: Tensor) -> Tensor:

@@ -299,6 +299,81 @@ def test_linear_scan_is_true_recurrence():
     np.testing.assert_allclose(out.numpy(), expect, rtol=1e-5, atol=1e-6)
 
 
+def _clustered_scan_np(a, b, max_rows, cluster=4, warps=8, lanes=32):
+    """numpy emulation, in fp32, of how csrc/linear_scan.cu splits the
+    scan: channel tiles of ``lanes``; per segment of T, ``cluster``
+    blocks of ``warps`` sub-chunks of ``rows`` steps (the fewest that
+    cover T in one segment, at most ``max_rows``); each sub-chunk scanned
+    from zero into (prod a, h_end); a block's warp summaries folded in
+    order into prefixes and the block's summary; the cluster's summaries
+    folded in rank order into each block's incoming state and the
+    segment's end state (the next segment's h_{-1}); every sub-chunk
+    rerun from its incoming state. Returns h and the number of writes of
+    each (b, t, d)."""
+    def cdiv(x, y):
+        return -(-x // y)
+
+    bsz, t_len, d_len = a.shape
+    rows = min(max_rows, cdiv(cdiv(t_len, cluster), warps))
+    tc = warps * rows
+    n_seg = cdiv(t_len, cluster * tc)
+    h = np.zeros_like(a)
+    writes = np.zeros(a.shape, np.int64)
+    for d0 in range(0, d_len, lanes):
+        ch = slice(d0, min(d0 + lanes, d_len))
+        one = np.ones((bsz, ch.stop - d0), np.float32)
+        carry = 0 * one
+        for seg in range(n_seg):
+            prefixes, blocks = [], []
+            for rank in range(cluster):
+                pa, ph, pre = one, 0 * one, []
+                for w in range(warps):
+                    t0 = (seg * cluster + rank) * tc + w * rows
+                    n = max(0, min(rows, t_len - t0))
+                    wa, wh = one, 0 * one
+                    for i in range(t0, t0 + n):
+                        ai = a[:, i, ch]
+                        wa, wh = wa * ai, ai * wh + b[:, i, ch]
+                    pre.append((t0, n, pa, ph))
+                    pa, ph = pa * wa, wa * ph + wh
+                prefixes.append(pre)
+                blocks.append((pa, ph))
+            incoming = []
+            for pa, ph in blocks:
+                incoming.append(carry)
+                carry = pa * carry + ph
+            for rank, pre in enumerate(prefixes):
+                for t0, n, pa, ph in pre:
+                    state = pa * incoming[rank] + ph
+                    for i in range(t0, t0 + n):
+                        state = a[:, i, ch] * state + b[:, i, ch]
+                        h[:, i, ch] = state
+                        writes[:, i, ch] += 1
+    return h, writes
+
+
+@pytest.mark.parametrize("b,t,d,max_rows", [
+    pytest.param(2, 3, 33, 32, id="T<cluster"),
+    pytest.param(1, 1000, 130, 32, id="T-ragged-one-segment"),
+    pytest.param(2, 3 * 4 * 8 * 4 + 7, 40, 4, id="four-segments"),
+    pytest.param(3, 70, 13, 32, id="D-not-8Z"),
+    pytest.param(1, 4096, 3, 32, id="serving-T-bf16-tiles"),
+    pytest.param(1, 4096, 3, 16, id="serving-T-fp32-tiles"),
+])
+def test_clustered_scan_decomposition_matches_ref(b, t, d, max_rows):
+    """The kernel's decomposition (emulated above; max_rows 32 is its
+    bf16 tile, 16 its fp32 tile — 4 and 8 segments at T = 4096 — and 4 a
+    small tile that makes T = 391 four segments) covers every (b, t, d)
+    once and gives ``ref.linear_scan_ref``'s h within 2e-5 (fp32, another
+    order)."""
+    rng = np.random.default_rng(7 * t + d)
+    a = rng.uniform(0.1, 0.99, (b, t, d)).astype(np.float32)
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    got, writes = _clustered_scan_np(a, x, max_rows)
+    assert got.dtype == np.float32 and (writes == 1).all()
+    _close(got, jref.linear_scan_ref(jnp.asarray(a), jnp.asarray(x)), 2e-5)
+
+
 @pytest.mark.parametrize("case", ["shape", "dtype", "mixed", "layout"])
 def test_linear_scan_refuses_off_cpu_what_the_kernel_does_not_take(case):
     """Off the CPU the wrapper checks and launches, never falls back to

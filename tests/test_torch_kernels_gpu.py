@@ -128,7 +128,8 @@ def test_cuda_trust_features_matches_plain(cuda, dtype):
                                  (1, 1)])
 def test_cuda_linear_scan_matches_plain(cuda, dtype, t, d):
     """B = 1 as the serving prefill gives it, at its shape and at ragged
-    T (not a multiple of the 32 chunks) and D (not of the 32 lanes)."""
+    T (not a multiple of a cluster's steps) and D (not of the 32
+    channels a block; rows not 16-byte aligned at 130, 33 and 1)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     a = (0.1 + 0.89 * torch.rand(1, t, d, generator=gen, device=cuda)
          ).to(_TDT[dtype])
@@ -136,5 +137,25 @@ def test_cuda_linear_scan_matches_plain(cuda, dtype, t, d):
     before = ops.linear_scan.launches
     got = ops.linear_scan(a, b)
     assert got.dtype == _TDT[dtype] and got.shape == (1, t, d)
+    _close(got, ops.linear_scan_plain(a, b), _TOL[dtype])
+    assert ops.linear_scan.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bsz,t,d", [(1, 12_295, 64), (3, 1000, 130)])
+def test_cuda_linear_scan_segments_and_batch_match_plain(cuda, dtype, bsz,
+                                                         t, d):
+    """T = 12,295 runs a cluster over many segments (a segment is at most
+    4 blocks * 8 warps * 32 steps = 1,024 steps in bf16, 512 in fp32),
+    the carry from one segment to the next included; B = 3 rides on
+    gridDim.z at a ragged D."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = (0.1 + 0.89 * torch.rand(bsz, t, d, generator=gen, device=cuda)
+         ).to(_TDT[dtype])
+    b = torch.randn(bsz, t, d, generator=gen, device=cuda).to(_TDT[dtype])
+    before = ops.linear_scan.launches
+    got = ops.linear_scan(a, b)
+    assert got.dtype == _TDT[dtype] and got.shape == (bsz, t, d)
     _close(got, ops.linear_scan_plain(a, b), _TOL[dtype])
     assert ops.linear_scan.launches == before + 1
