@@ -11,14 +11,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (exact for topk_mask and stochastic_quantize,
    1e-5 in fp32 and 5e-2 in bf16 for the others; linear_scan also at a
-   ragged (3, 1000, 130) and a multi-segment (1, 12295, 64)), then
+   ragged (3, 1000, 130) and a multi-segment (1, 12295, 64); the fused
+   trust stage, scalar and multi, with every row delivering, one not,
+   none, and an odd count, phi, ts, reputation, norms, features,
+   separability and weights within 1e-5, gbar and f2 exact, the median
+   within 1e-6 relative; trust_score and trust_features are its
+   standalone modes), then
    device times (CUDA graph replays between CUDA events, median of
    repeats) of the kernel's wrapper, the plain version and, where one
    PyTorch call computes the same function, that call (a yardstick the
    port never calls), and the wrapper's eager time from Python
    (``call_ms``, launch overhead included); linear_scan also cold
    (``ms_cold``: the calls rotate over 4 input sets, 168 MB in bf16, so
-   no call finds its inputs in the 50 MB L2), in bf16 and fp32;
+   no call finds its inputs in the 50 MB L2), in bf16 and fp32; for the
+   trust stage, the launch floor of an empty kernel on its grid, plain
+   and as an 8-block cluster;
 4. agreement: two rounds of each FL path at a small configuration on the
    card against the same rounds on the CPU (plain versions), from one
    initial state and one set of draws — masks and bytes exact,
@@ -35,14 +42,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (the loop ``run_simulation`` runs) at full width — 3 clouds x 30
      clients, 30 selected, the paper's CNN (D = 545,098):
      - HEADLINE (README): label_flip, top-k 0.1 on cross-cloud links;
-       trust_score, weighted_agg and topk_mask once per round, the QSGD,
-       feature and scan kernels never;
+       trust_stage, weighted_agg and topk_mask once per round, the
+       standalone trust_score and trust_features, QSGD and scan kernels
+       never;
      - DEFENSE (README "Multi-feature Byzantine defense"): alie_norm,
        the multi-feature gate, QSGD (15 levels) on every client and edge
-       uplink; trust_score, weighted_agg and trust_features once per
-       round, stochastic_quantize twice (client wire, edge wire),
-       topk_mask and linear_scan never; feature weights finite and
-       summing to 1, residuals finite;
+       uplink; trust_stage and weighted_agg once per round,
+       stochastic_quantize twice (client wire, edge wire), topk_mask,
+       the standalone trust kernels and linear_scan never; feature
+       weights finite and summing to 1, residuals finite;
      params finite; bytes and $ equal the cost model's for each
      delivered mask; then the test accuracy and rounds/s of each path;
    * SERVE: ``repro_torch.launch.serve.serve`` at recurrentgemma-2b's
@@ -53,8 +61,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      tokens in the vocabulary; the parameter count held, peak memory,
      prefill ms per request and decode tokens/s.
 
-Prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-"device": ...}`` line. Exits non-zero without a CUDA device, and when
+Prints one ``{"kernels": [...]}`` line (one entry per Pallas kernel; the
+fused trust stage's launches count for trust_score on both FL paths and
+for trust_features on the defense path, and those two entries give the
+time, error and bound of the launch counted: the stage, scalar for
+trust_score and multi for trust_features, with their standalone modes'
+under ``standalone_*``) and, last, the ``{"ok": true, "device": ...}``
+line. Exits non-zero without a CUDA device, and when
 ``src/repro_torch`` is not beside this script.
 
     python3 chip_smoke.py --profile  # build, then trace steady work
@@ -81,7 +94,7 @@ SRC = ROOT / "src"
 ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM fp32, outside the tensor cores
-REPLACES = {
+REPLACES = {       # Pallas kernel -> the port's CUDA source
     "trust_score": "src/repro/kernels/trust_score.py:76",
     "weighted_agg": "src/repro/kernels/weighted_agg.py:40",
     "topk_mask": "src/repro/kernels/topk_mask.py:48",
@@ -89,6 +102,14 @@ REPLACES = {
     "trust_features": "src/repro/kernels/trust_features.py:92",
     "linear_scan": "src/repro/kernels/linear_scan.py:54",
 }
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCES = {n: f"{CSRC}/{n}.cu" for n in REPLACES}
+SOURCES.update(trust_score=f"{CSRC}/trust_stage.cu",
+               trust_features=f"{CSRC}/trust_stage.cu")
+# the FL paths on which the fused trust_stage launch computes each
+# function (trust_features only under trust_features="multi")
+FUSED_INTO_STAGE = {"trust_score": ("headline", "defense"),
+                    "trust_features": ("defense",)}
 # the test suite's small topology at the same headline knobs
 SMALL = dict(n_clouds=3, clients_per_cloud=4, clients_per_round=6,
              local_epochs=1, local_batch=8, ref_samples=16)
@@ -98,12 +119,12 @@ DEFENSE = dict(attack="alie_norm", malicious_frac=0.3, trust_features="multi",
                compressor="qsgd", qsgd_levels=15, link_policy="all")
 # launches per round of each kernel on each path (0: never)
 PATHS = {
-    "headline": (HEADLINE, dict(trust_score=1, weighted_agg=1, topk_mask=1,
-                                stochastic_quantize=0, trust_features=0,
-                                linear_scan=0)),
-    "defense": (DEFENSE, dict(trust_score=1, weighted_agg=1, topk_mask=0,
-                              stochastic_quantize=2, trust_features=1,
-                              linear_scan=0)),
+    "headline": (HEADLINE, dict(trust_stage=1, trust_score=0, weighted_agg=1,
+                                topk_mask=1, stochastic_quantize=0,
+                                trust_features=0, linear_scan=0)),
+    "defense": (DEFENSE, dict(trust_stage=1, trust_score=0, weighted_agg=1,
+                              topk_mask=0, stochastic_quantize=2,
+                              trust_features=0, linear_scan=0)),
 }
 # the serve path: recurrentgemma-2b at full width, as the launcher runs it
 SERVE = dict(arch="recurrentgemma-2b", batch=4, requests=8, prompt_len=4096,
@@ -373,6 +394,8 @@ def kernel_phase(torch, ops, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"G ({m}, {L}) f32, refs ({k}, {L})")
 
+    rec["trust_stage"] = stage_record(torch, ops, dev, gen)
+
     # linear_scan: one serving prefill's (1, 4096, 2560) per "R" layer;
     # a ragged (3, 1000, 130) (T not a multiple of a cluster's steps, D
     # not of the 32 channels a block, rows not 16-byte aligned: the
@@ -413,6 +436,122 @@ def kernel_phase(torch, ops, dev):
         # the scan's traffic reaches on this card, below the data sheet's
         add_ms_cold=time_cold_ms(torch, torch.add, sets[torch.bfloat16]))
     return rec
+
+
+def stage_inputs(torch, gen, dev, m=30, k=3, n=90, d=545_098,
+                 length=1290):
+    """The round's trust-stage inputs at the main paths' shapes: the wire
+    (m, d) with the last layer at columns [d - length, d), the own-cloud
+    references (k, d), clouds, the reputation EMA of n clients and the
+    selected ids, the separability EMA. The rows' norms and alignments
+    with their references are spread evenly, as honest and attacked
+    updates differ: the separability divides by each feature's spread,
+    so rows with nearly equal features would make it ill-conditioned
+    (tests/test_torch_trust_stage.py)."""
+    import math
+    lo = d - length
+    flat = torch.randn(m, d, generator=gen, device=dev)
+    refs = torch.randn(k, d, generator=gen, device=dev)
+    cloud = torch.arange(k, device=dev).repeat_interleave(m // k)
+    scale = torch.logspace(math.log10(0.3), math.log10(3.0), m, device=dev)
+    align = torch.linspace(-0.5, 1.5, m, device=dev)
+    scale = scale[torch.randperm(m, generator=gen, device=dev)]
+    align = align[torch.randperm(m, generator=gen, device=dev)]
+    flat[:, lo:] = scale[:, None] * (
+        align[:, None] * refs[cloud, lo:]
+        + torch.randn(m, length, generator=gen, device=dev))
+    rep_ema = 0.01 + 0.19 * torch.rand(n, generator=gen, device=dev)
+    sel_idx = torch.sort(torch.randperm(n, generator=gen, device=dev)[:m])[0]
+    feat_sep = torch.rand(4, generator=gen, device=dev)
+    return dict(flat=flat, refs=refs, lo=lo, length=length, ref_idx=cloud,
+                rep_ema=rep_ema, sel_idx=sel_idx, n=n, feat_sep=feat_sep)
+
+
+def check_stage(torch, got, want, what: str) -> float:
+    """Kernel against plain: floats within 1e-5, gbar and f2 exact, the
+    median within 1e-6 relative (or both NaN). Returns the max error."""
+    import math
+    worst = 0.0
+    for name in ("phi", "ts", "rep_sel", "norms", "feats", "new_sep",
+                 "feat_w"):
+        a, b = getattr(got, name), getattr(want, name)
+        check((a is None) == (b is None), f"trust_stage {what}: {name}")
+        if a is None:
+            continue
+        worst = max(worst, max_err(torch, a, b))
+        check(close(torch, a, b, 1e-5), f"trust_stage {what} {name}: max "
+              f"err {max_err(torch, a, b)} > 1e-5")
+    check(torch.equal(got.gbar, want.gbar), f"trust_stage {what}: gbar not "
+          f"exact (max err {max_err(torch, got.gbar, want.gbar)})")
+    if got.feats is not None:
+        check(torch.equal(got.feats[:, 2], want.feats[:, 2]),
+              f"trust_stage {what}: f2 not exact")
+    a, b = float(got.med), float(want.med)
+    check((math.isnan(a) and math.isnan(b)) or abs(a - b) <= 1e-6 * abs(b),
+          f"trust_stage {what}: med {a} against {b}")
+    return worst
+
+
+def stage_record(torch, ops, dev, gen):
+    """The fused trust stage at the main paths' shapes against its plain
+    version (scalar and multi; every row delivering, one not, none, an
+    odd count), then its device time (``ms``, CUDA graph), its eager time
+    (``call_ms``: what a round pays), the plain version's, the bound and
+    the largest error (suffix ``_multi`` for the multi stage), and the
+    launch floor."""
+    from repro_torch.kernels.trust_stage import launch_floor
+
+    x = stage_inputs(torch, gen, dev)
+    m, k, n = x["flat"].shape[0], x["refs"].shape[0], x["n"]
+    length, gamma = x["length"], 0.9
+    ones = torch.ones(m, device=dev)
+    cases = {"ones": ones, "one_zero": ones.clone(),
+             "none": torch.zeros(m, device=dev), "odd": ones.clone()}
+    cases["one_zero"][1] = 0.0
+    cases["odd"][:7] = 0.0                     # 23 rows deliver
+
+    def args(w, multi):
+        return (x["flat"], x["refs"], x["lo"], length, x["ref_idx"], w,
+                x["rep_ema"], x["sel_idx"], gamma, n), dict(
+                    feat_sep=x["feat_sep"] if multi else None)
+
+    err = {False: 0.0, True: 0.0}
+    for (name, w), multi in itertools.product(cases.items(), (False, True)):
+        a, kw = args(w, multi)
+        got = ops.trust_stage(*a, **kw)
+        want = ops.trust_stage_plain(*a, **kw)
+        err[multi] = max(err[multi], check_stage(
+            torch, got, want, f"w {name}, multi={multi}"))
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        return time_ms(torch, fn), call_ms(torch, fn)
+
+    out = {}
+    for multi in (False, True):
+        a, kw = args(ones, multi)
+        tag = "_multi" if multi else ""
+        out["ms" + tag], out["call_ms" + tag] = timed(
+            lambda: ops.trust_stage(*a, **kw))
+        out["plain_ms" + tag], out["plain_call_ms" + tag] = timed(
+            lambda: ops.trust_stage_plain(*a, **kw))
+        # read: the wire's and the references' last layer, clouds and ids
+        # (int64), w, the m reputations gathered and (multi) feat_sep;
+        # written: phi, ts, rep_sel, norms, med, gbar and (multi) the
+        # features, new_sep and feat_w
+        nf = 4 if multi else 0
+        nbytes = (4 * (m * length + k * length + 2 * m + nf) + 8 * 2 * m
+                  + 4 * (4 * m + 1 + length + nf * m + 2 * nf))
+        out["bound_ms" + tag], out["bound_by" + tag] = bound(
+            nbytes, 12 * m * length)
+        out["max_abs_err" + tag] = err[multi]
+    out["floor_ms"], out["floor_call_ms"] = timed(
+        lambda: launch_floor(dev, cluster=False))
+    out["cluster_floor_ms"], out["cluster_floor_call_ms"] = timed(
+        lambda: launch_floor(dev, cluster=True))
+    return dict(library_ms=None, **out,
+                shape=f"wire ({m}, 545098) f32 at columns [543808, 545098), "
+                      f"refs ({k}, 545098), {n} clients")
 
 
 SCAN_SETS = 4     # rotated input sets for cold timing: 168 MB in bf16
@@ -699,9 +838,9 @@ def main_path_phase(torch, ops, dev, path: str):
 
 
 # first match wins: cuDNN's implicit-GEMM convolutions also say "gemm"
-_GROUPS = (("port kernels", ("trust_score_kernel", "weighted_agg_kernel",
+_GROUPS = (("port kernels", ("trust_stage_kernel", "weighted_agg_kernel",
                              "topk_mask_kernel", "quantize_kernel",
-                             "trust_features_kernel", "linear_scan_kernel")),
+                             "linear_scan_kernel")),
            ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
                             "Wgrad", "winograd", "implicit")),
            ("matmul", ("gemm", "Gemm", "cutlass", "nvjet", "xmma")),
@@ -885,17 +1024,28 @@ def main() -> int:
           f"tokens/s at batch 1 per slot", flush=True)
 
     # launches: the sum over the paths' runs (each read right after its
-    # path, counters reset right before); per path beside it
-    kernels = [dict(name=n, route="cuda",
-                    source=f"src/repro_torch/kernels/csrc/{n}.cu",
-                    replaces=REPLACES[n],
-                    launches=sum(c[n] for c in counts.values()),
-                    launches_by_path={p: c[n] for p, c in counts.items()},
-                    max_abs_err=rec[n]["max_abs_err"], ms=rec[n]["ms"],
-                    plain_ms=rec[n]["plain_ms"], bound_ms=rec[n]["bound_ms"],
-                    bound_by=rec[n]["bound_by"],
-                    library_ms=rec[n]["library_ms"])
-               for n in REPLACES]
+    # path, counters reset right before); per path beside it. The fused
+    # trust_stage launch computes trust_score's function on both FL paths
+    # and trust_features's on the defense path: those entries take the
+    # stage's numbers (scalar, multi), their standalone modes' beside them
+    def launched(n, path, c):
+        fused = path in FUSED_INTO_STAGE.get(n, ())
+        return c[n] + (c["trust_stage"] if fused else 0)
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    kernels = []
+    for n in REPLACES:
+        by_path = {p: launched(n, p, c) for p, c in counts.items()}
+        entry = dict(
+            name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **{key: rec[n][key] for key in keys},
+            library_ms=rec[n]["library_ms"])
+        if n in FUSED_INTO_STAGE:
+            tag = "_multi" if n == "trust_features" else ""
+            entry.update({f"standalone_{key}": entry[key] for key in keys})
+            entry.update({key: rec["trust_stage"][key + tag] for key in keys})
+        kernels.append(entry)
     for k in kernels:       # the cold-L2 time where phase 3 took one
         if "ms_cold" in rec[k["name"]]:
             k["ms_cold"] = rec[k["name"]]["ms_cold"]

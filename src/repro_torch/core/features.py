@@ -16,7 +16,8 @@ softmax-mixed (temperature ``WEIGHT_TEMP``) and applied as the capped
 gate φ·(1 − β + β·F@w) with β = ``BETA_MAX``·sep[norm_profile]: with no
 evidence the gate is 1 and ``multi`` equals ``scalar``.
 :func:`client_features` is the plain version of the ``trust_features``
-kernel (``repro_torch.kernels.trust_features``).
+kernel (``repro_torch.kernels.trust_features``, a mode of the fused
+``trust_stage`` kernel that the round engine launches once a round).
 """
 from __future__ import annotations
 
@@ -52,8 +53,11 @@ def client_features(last_layer: Tensor, ref_rows: Tensor, gbar: Tensor,
     f0 = 1.0 / (1.0 + torch.abs(torch.log(torch.clamp(norms, min=eps)
                                           / med)))
     f1 = torch.relu(dots / torch.clamp(norms * ref_norms, min=eps))
-    f2 = torch.mean((g * gbar.to(torch.float32)[None, :] > 0)
+    # the count over an IEEE division by a tensor (a division by a Python
+    # scalar may run as a product with its reciprocal on the card)
+    f2 = (torch.sum((g * gbar.to(torch.float32)[None, :] > 0)
                     .to(torch.float32), dim=1)
+          / torch.full((), float(g.shape[1]), device=g.device))
     ratio = torch.clamp(norms, min=eps) / med
     x = f1 * torch.minimum(ratio, 1.0 / ratio)
     f3 = x / (1.0 + x)

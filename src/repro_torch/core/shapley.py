@@ -1,6 +1,6 @@
 """The paper's lightweight contribution score (Eq. 7). The round engine
-computes it through the ``trust_score`` kernel; this is the plain form
-the kernel is held against."""
+computes it inside the fused ``trust_stage`` kernel (``trust_score`` is
+that kernel's standalone mode); this is the plain form."""
 from __future__ import annotations
 
 from typing import Optional

@@ -10,8 +10,8 @@ damp and, under ``trust_features="multi"``, the multi-feature gate,
 Eq. 8–9 reputation EMA, Eq. 11 trust against the client's own-cloud
 reference, Eq. 12 rescale + Eq. 13 per-cloud aggregate, the edge→global
 wire (error feedback), the Eq. 6 β combine, and byte-exact accounting.
-Eq. 7 + 11 statistics go through the ``trust_score`` kernel, the
-features through ``trust_features``, Eq. 12 + 13 through
+The trust stage (Eq. 7 with the damp, the gate, Eq. 8–9, Eq. 11) is one
+launch of the ``trust_stage`` kernel, Eq. 12 + 13 go through
 ``weighted_agg``, and the wires through ``topk_mask`` (top-k) or
 ``stochastic_quantize`` (QSGD).
 
@@ -221,6 +221,20 @@ def last_layer_index(shapes: Dict[str, Tuple[int, ...]]) -> np.ndarray:
         for k in LAST_LAYER])
 
 
+def last_layer_range(shapes: Dict[str, Tuple[int, ...]]) -> Tuple[int, int]:
+    """(lo, L): the contiguous column range [lo, lo + L) that holds the
+    positions of :data:`LAST_LAYER` (for the paper's CNN [D − 1290, D):
+    ``fc2_b`` then ``fc2_w``). The trust stage reads it in place; its
+    sums do not depend on the columns' order. Raises ``ValueError`` when
+    the positions are not one contiguous range."""
+    idx = np.sort(last_layer_index(shapes))
+    lo = int(idx[0])
+    if not np.array_equal(idx, np.arange(lo, lo + len(idx))):
+        raise ValueError(f"the trust path's leaves {LAST_LAYER} are not "
+                         "one contiguous range of the flattened vector")
+    return lo, len(idx)
+
+
 def _stream(seed: int, t: int, *folds: int, device: torch.device
             ) -> torch.Generator:
     """The own-mode stream of round t under the fold path ``folds``."""
@@ -322,8 +336,7 @@ class Engine:
             "fc1_b": (128,), "fc1_w": (flat, 128),
             "fc2_b": (st.n_classes,), "fc2_w": (128, st.n_classes)}
         self.d_params = int(sum(np.prod(s) for s in self.shapes.values()))
-        self.ll_idx = torch.as_tensor(last_layer_index(self.shapes),
-                                      device=dev)
+        self.ll_lo, self.ll_len = last_layer_range(self.shapes)
 
         self.link_policy = lp = build_link_policy(
             st.compressor, ratio=st.compress_ratio, levels=st.qsgd_levels,
@@ -509,52 +522,28 @@ class Engine:
                                            res_client[sel_idx], valid, noise)
             res_client.index_copy_(0, sel_idx, cur)
 
-        # the trust path reads the attacked + compressed wire view
-        ll_sel = flat_sel[:, self.ll_idx]                         # (m, L)
-        ref_ll = ref_flat[:, self.ll_idx]                         # (K, L)
+        # the trust stage reads the attacked + compressed wire view in
+        # place (the last layer's columns), in one kernel launch: Eq. 7
+        # with the median damp, under "multi" the feature gate (the
+        # separability EMA updated first, the gate with THIS round's
+        # weights), Eq. 8–9 normalize + EMA for delivered rows, and Eq. 11
+        # trust against the client's own-cloud reference
         sel_cloud = self.cloud_of[sel_idx]                        # (m,)
         w = valid.to(torch.float32)
-
-        # Eq. 7 + 11 statistics in one kernel pass: phi, ReLU(cos(g, own
-        # cloud ref)) (reputation 1 — Eq. 11 needs the POST-EMA rep), ‖g‖
-        gbar = (w @ ll_sel) / torch.clamp(torch.sum(w), min=1.0)
-        phi, cos_ref, norms = ops.trust_score(
-            ll_sel, gbar, ref_ll, torch.ones_like(w), ref_idx=sel_cloud)
-        # median damp (jnp.nanmedian averages the middle pair; so does
-        # the 0.5 quantile, unlike torch.nanmedian)
-        med = torch.nanquantile(
-            torch.where(w > 0, norms, torch.full_like(norms, float("nan"))),
-            0.5)
-        damp = torch.clamp((med / torch.clamp(norms, min=EPS)) ** 2, max=1.0)
-        damp = torch.where(torch.isnan(damp), torch.ones_like(damp), damp)
-        phi = phi * damp * w
-
-        # multi-feature gate: features in one kernel pass, separability
-        # EMA updated first, then the gate with THIS round's weights
+        stage = ops.trust_stage(
+            flat_sel, ref_flat, self.ll_lo, self.ll_len, sel_cloud, w,
+            state.rep_ema, sel_idx, st.ema_gamma, n,
+            feat_sep=state.feat_sep if st.multi_features else None, eps=EPS)
+        new_rep = state.rep_ema.clone()
+        new_rep[sel_idx] = stage.rep_sel
+        ts = stage.ts
         new_feat_sep = state.feat_sep
         feat_w = torch.zeros(0, device=dev)
         if st.multi_features:
-            feats = ops.trust_features(ll_sel, ref_ll, gbar, med, w,
-                                       ref_idx=sel_cloud, eps=EPS)
-            new_feat_sep = (feats_mod.FEAT_SEP_RHO * state.feat_sep
-                            + (1.0 - feats_mod.FEAT_SEP_RHO)
-                            * feats_mod.separability(feats, w, EPS))
-            feat_w = feats_mod.feature_weights(new_feat_sep)
-            phi = phi * feats_mod.gate(feats, new_feat_sep)
+            new_feat_sep, feat_w = stage.new_sep, stage.feat_w
 
-        # Eq. 8–9: normalize over the round, EMA for delivered rows
-        total = torch.sum(phi)
-        r = torch.where(total > EPS, phi / torch.clamp(total, min=EPS),
-                        torch.full_like(phi, 1.0 / n))
-        rep_old = state.rep_ema[sel_idx]
-        rep_sel = st.ema_gamma * rep_old + (1.0 - st.ema_gamma) * r
-        rep_sel = torch.where(valid, rep_sel, rep_old)
-        new_rep = state.rep_ema.clone()
-        new_rep[sel_idx] = rep_sel
-
-        # Eq. 11 trust, then Eq. 12 rescale to the own-cloud reference
-        # norm (full rows) + Eq. 13 per-cloud aggregate in one kernel pass
-        ts = cos_ref * rep_sel * w
+        # Eq. 12 rescale to the own-cloud reference norm (full rows) +
+        # Eq. 13 per-cloud aggregate in one kernel pass
         cloud_aggs = ops.weighted_agg(
             flat_sel, ts, torch.linalg.vector_norm(flat_sel, dim=1),
             torch.linalg.vector_norm(ref_flat, dim=1), seg=sel_cloud,

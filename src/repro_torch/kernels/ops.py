@@ -14,14 +14,19 @@ from repro_torch.kernels.topk_mask import (row_threshold, topk_mask,
 from repro_torch.kernels.trust_features import (trust_features,
                                                 trust_features_plain)
 from repro_torch.kernels.trust_score import trust_score, trust_score_plain
+from repro_torch.kernels.trust_stage import (TrustStage, trust_stage,
+                                             trust_stage_plain)
 from repro_torch.kernels.weighted_agg import (agg_weights, weighted_agg,
                                               weighted_agg_plain,
                                               weighted_agg_rows,
                                               weighted_agg_rows_plain)
 
-# one counter per kernel (quantize_roundtrip launches stochastic_quantize's)
-KERNELS = {"trust_score": trust_score, "weighted_agg": weighted_agg,
-           "topk_mask": topk_mask, "stochastic_quantize": stochastic_quantize,
+# one counter per wrapper that launches a kernel (quantize_roundtrip
+# launches stochastic_quantize's; trust_score and trust_features launch
+# the standalone modes of trust_stage's kernel, counted apart)
+KERNELS = {"trust_stage": trust_stage, "trust_score": trust_score,
+           "weighted_agg": weighted_agg, "topk_mask": topk_mask,
+           "stochastic_quantize": stochastic_quantize,
            "trust_features": trust_features, "linear_scan": linear_scan}
 
 
@@ -34,7 +39,8 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["trust_score", "trust_score_plain", "weighted_agg",
+__all__ = ["trust_stage", "trust_stage_plain", "TrustStage",
+           "trust_score", "trust_score_plain", "weighted_agg",
            "weighted_agg_plain", "weighted_agg_rows",
            "weighted_agg_rows_plain", "agg_weights", "topk_mask",
            "topk_mask_plain", "row_threshold", "stochastic_quantize",

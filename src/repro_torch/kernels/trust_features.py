@@ -1,7 +1,9 @@
 """Fused per-client trust feature pass: the Hopper port of
-``repro/kernels/trust_features.py:trust_features`` (CUDA source
-``csrc/trust_features.cu``), with its plain PyTorch version
-(``repro_torch.core.features.client_features``).
+``repro/kernels/trust_features.py:trust_features``, with its plain
+PyTorch version (``repro_torch.core.features.client_features``). On CUDA
+tensors it launches the ``features`` mode of the fused trust-stage kernel
+(``csrc/trust_stage.cu``, see ``trust_stage``); the round engine runs the
+whole stage in one launch of that kernel instead.
 
 Signature is a superset of the TPU kernel's: ``refs`` is either one
 reference row per row of G, (M, D) (the TPU kernel's own mode), or a
@@ -12,16 +14,13 @@ non-positive; it is sanitized inside, as the TPU kernel does.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from repro_torch.core.features import N_FEATURES, client_features
-from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def trust_features_plain(grads: Tensor, refs: Tensor, gbar: Tensor,
@@ -33,17 +32,6 @@ def trust_features_plain(grads: Tensor, refs: Tensor, gbar: Tensor,
     return client_features(grads, rows, gbar, med, w, eps)
 
 
-def _lib():
-    lib = _build.load("trust_features")
-    fn = lib.trust_features_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def trust_features(grads: Tensor, refs: Tensor, gbar: Tensor, med: Tensor,
                    w: Tensor, ref_idx: Optional[Tensor] = None,
                    eps: float = 1e-12) -> Tensor:
@@ -52,8 +40,9 @@ def trust_features(grads: Tensor, refs: Tensor, gbar: Tensor, med: Tensor,
     kernel (or raise)."""
     if grads.device.type == "cpu":
         return trust_features_plain(grads, refs, gbar, med, w, ref_idx, eps)
+    from repro_torch.kernels import trust_stage as stage
     m, d = grads.shape
-    if grads.dtype not in _DTYPES or not grads.is_contiguous():
+    if grads.dtype not in stage.DTYPES or not grads.is_contiguous():
         raise ValueError("trust_features: G must be contiguous "
                          "float32/bfloat16")
     dev = grads.device
@@ -70,18 +59,17 @@ def trust_features(grads: Tensor, refs: Tensor, gbar: Tensor, med: Tensor,
     if ref_idx is None:
         if refs.shape[0] != m:
             raise ValueError("trust_features: per-row mode takes refs (M, D)")
-        idx_ptr = None
+        ref_mode = stage.REF_ROWS
     else:
         if ref_idx.shape != (m,):
             raise ValueError("trust_features: cloud mode takes ref_idx (M,)")
-        ref_idx = ref_idx.to(dev, torch.int32).contiguous()
-        idx_ptr = ref_idx.data_ptr()
+        ref_idx = ref_idx.to(dev, torch.int64).contiguous()
+        ref_mode = stage.REF_INDEXED
     out = torch.empty(m, N_FEATURES, dtype=torch.float32, device=dev)
-    err = _lib()(grads.data_ptr(), _DTYPES[grads.dtype], refs.data_ptr(),
-                 idx_ptr, gbar.data_ptr(), med.data_ptr(),
-                 w.data_ptr(), out.data_ptr(), m, d, eps,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "trust_features")
+    stage.launch(stage.MODE_FEATURES, grads, d, refs, d, ref_mode,
+                 refs.shape[0], 0, d, m,
+                 (None,) * 6 + (out.data_ptr(),) + (None,) * 3,
+                 ref_idx=ref_idx, w=w, gbar_in=gbar, med_in=med, eps=eps)
     trust_features.launches += 1
     return out
 

@@ -1,6 +1,8 @@
 """Fused per-client trust statistics (Eq. 7 + Eq. 11): the Hopper port of
-``repro/kernels/trust_score.py:trust_score`` (CUDA source
-``csrc/trust_score.cu``), with its plain PyTorch version.
+``repro/kernels/trust_score.py:trust_score``, with its plain PyTorch
+version. On CUDA tensors it launches the ``score`` mode of the fused
+trust-stage kernel (``csrc/trust_stage.cu``, see ``trust_stage``); the
+round engine runs the whole stage in one launch of that kernel instead.
 
 Signature is a superset of the TPU kernel's: ``ref`` is either one
 ``(L,)`` reference (the TPU kernel's own mode) or a ``(K, L)`` matrix
@@ -10,15 +12,11 @@ computed outside as the TPU wrapper computes it outside its body.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
-
 Tensor = torch.Tensor
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def trust_score_plain(grads: Tensor, gbar: Tensor, ref: Tensor,
@@ -41,17 +39,6 @@ def trust_score_plain(grads: Tensor, gbar: Tensor, ref: Tensor,
     return phi, ts, norms
 
 
-def _lib():
-    lib = _build.load("trust_score")
-    fn = lib.trust_score_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def trust_score(grads: Tensor, gbar: Tensor, ref: Tensor, reputation: Tensor,
                 ref_idx: Optional[Tensor] = None, eps: float = 1e-12
                 ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -60,8 +47,9 @@ def trust_score(grads: Tensor, gbar: Tensor, ref: Tensor, reputation: Tensor,
     kernel (or raise)."""
     if grads.device.type == "cpu":
         return trust_score_plain(grads, gbar, ref, reputation, ref_idx, eps)
+    from repro_torch.kernels import trust_stage as stage
     m, L = grads.shape
-    if grads.dtype not in _DTYPES or not grads.is_contiguous():
+    if grads.dtype not in stage.DTYPES or not grads.is_contiguous():
         raise ValueError("trust_score: G must be contiguous float32/bfloat16")
     dev = grads.device
     gbar = gbar.to(dev, torch.float32).contiguous()
@@ -73,21 +61,19 @@ def trust_score(grads: Tensor, gbar: Tensor, ref: Tensor, reputation: Tensor,
     if ref_idx is None:
         if ref.shape != (L,):
             raise ValueError("trust_score: single-ref mode takes ref (L,)")
-        idx_ptr = None
+        ref_mode, n_ref = stage.REF_SINGLE, 1
     else:
         if ref.dim() != 2 or ref.shape[1] != L or ref_idx.shape != (m,):
             raise ValueError("trust_score: cloud mode takes ref (K, L) and "
                              "ref_idx (m,)")
-        ref_idx = ref_idx.to(dev, torch.int32).contiguous()
-        idx_ptr = ref_idx.data_ptr()
-    phi = torch.empty(m, dtype=torch.float32, device=dev)
-    ts = torch.empty_like(phi)
-    norms = torch.empty_like(phi)
-    err = _lib()(grads.data_ptr(), _DTYPES[grads.dtype], gbar.data_ptr(),
-                 ref.data_ptr(), idx_ptr, rep.data_ptr(), phi.data_ptr(),
-                 ts.data_ptr(), norms.data_ptr(), m, L, eps,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "trust_score")
+        ref_idx = ref_idx.to(dev, torch.int64).contiguous()
+        ref_mode, n_ref = stage.REF_INDEXED, ref.shape[0]
+    out = torch.empty(3, m, dtype=torch.float32, device=dev)
+    phi, ts, norms = out.unbind(0)
+    stage.launch(stage.MODE_SCORE, grads, L, ref, L, ref_mode, n_ref, 0, L,
+                 m, (phi.data_ptr(), ts.data_ptr(), norms.data_ptr())
+                 + (None,) * 7, ref_idx=ref_idx, gbar_in=gbar, rep=rep,
+                 eps=eps)
     trust_score.launches += 1
     return phi, ts, norms
 

@@ -159,3 +159,137 @@ def test_cuda_linear_scan_segments_and_batch_match_plain(cuda, dtype, bsz,
     assert got.dtype == _TDT[dtype] and got.shape == (bsz, t, d)
     _close(got, ops.linear_scan_plain(a, b), _TOL[dtype])
     assert ops.linear_scan.launches == before + 1
+
+
+def _stage_inputs(cuda, m, d, lo, length, case, seed=7, k=3, spread=True):
+    """Trust-stage inputs on the card: the wire (m, d) with the last layer
+    at [lo, lo + length), its rows' norms and alignments with their
+    references spread evenly (nearly equal features would make the
+    separability ill-conditioned, tests/test_torch_trust_stage.py), or
+    with ``spread=False`` drawn uniformly over the same ranges."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = 3 * m                                  # clients
+    flat = torch.randn(m, d, generator=gen, device=cuda)
+    refs = torch.randn(k, d, generator=gen, device=cuda)
+    cloud = torch.randint(0, k, (m,), generator=gen, device=cuda)
+    if spread:
+        scale = torch.logspace(-0.5229, 0.4771, m, device=cuda)  # 0.3 .. 3
+        align = torch.linspace(-0.5, 1.5, m, device=cuda)
+        scale = scale[torch.randperm(m, generator=gen, device=cuda)]
+        align = align[torch.randperm(m, generator=gen, device=cuda)]
+    else:
+        scale = 0.3 + 2.7 * torch.rand(m, generator=gen, device=cuda)
+        align = -0.5 + 2.0 * torch.rand(m, generator=gen, device=cuda)
+    flat[:, lo:lo + length] = scale[:, None] * (
+        align[:, None] * refs[cloud, lo:lo + length]
+        + torch.randn(m, length, generator=gen, device=cuda))
+    w = torch.ones(m, device=cuda)
+    if case == "all_zero":
+        w[:] = 0.0
+    elif case == "three":
+        w[3:] = 0.0
+    else:
+        w[1::4] = 0.0
+    rep = 0.01 + 0.19 * torch.rand(n, generator=gen, device=cuda)
+    sel = torch.sort(torch.randperm(n, generator=gen, device=cuda)[:m])[0]
+    feat_sep = torch.rand(4, generator=gen, device=cuda)
+    return (flat, refs, lo, length, cloud, w, rep, sel, 0.9, n), feat_sep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["some_zero", "all_zero"])
+@pytest.mark.parametrize("multi", [False, True], ids=["scalar", "multi"])
+@pytest.mark.parametrize("m,d,lo,length", [
+    (30, 545_098, 543_808, 1290),      # the main path: float2 loads
+    (1, 9, 5, 1), (7, 20, 6, 10), (33, 1300, 5, 1291), (2, 1297, 7, 1290),
+    (300, 2000, 3, 1500)])
+def test_cuda_trust_stage_matches_plain(cuda, m, d, lo, length, multi,
+                                        case):
+    """The fused stage against its plain version: floats within 1e-5,
+    gbar and f2 exact, the median within 1e-6 relative (NaN when no row
+    delivers); ragged widths, odd column offsets (plain loads) and
+    m = 300 (several row chunks, tiles in device memory)."""
+    args, feat_sep = _stage_inputs(cuda, m, d, lo, length, case)
+    kw = dict(feat_sep=feat_sep if multi else None)
+    before = ops.trust_stage.launches
+    got = ops.trust_stage(*args, **kw)
+    want = ops.trust_stage_plain(*args, **kw)
+    assert ops.trust_stage.launches == before + 1
+    for name in ("phi", "ts", "rep_sel", "norms", "feats", "new_sep",
+                 "feat_w"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            _close(a, b, 1e-5)
+    assert torch.equal(got.gbar, want.gbar)
+    if multi:
+        assert torch.equal(got.feats[:, 2], want.feats[:, 2])
+    if case == "all_zero":
+        assert torch.isnan(got.med) and torch.isnan(want.med)
+    else:
+        np.testing.assert_allclose(float(got.med), float(want.med),
+                                   rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["some_zero", "three"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_trust_stage_random_draws_within_conditioning(cuda, seed, case):
+    """Norms and alignments drawn at random (every row delivering but a
+    quarter, or three rows): the separability may be ill-conditioned
+    (ROADMAP.md C), so new_sep is held to what one ulp of the features
+    gives through the one-pass variance (4 ulp times E[x^2] / var(x) of
+    the feature and the anchor, half of it through the EMA) and the
+    feature weights to 1/T = 5 times that; gbar and f2 exact, the
+    features within 1e-5."""
+    args, feat_sep = _stage_inputs(cuda, 30, 545_098, 543_808, 1290, case,
+                                   seed=seed, spread=False)
+    got = ops.trust_stage(*args, feat_sep=feat_sep)
+    want = ops.trust_stage_plain(*args, feat_sep=feat_sep)
+    assert torch.equal(got.gbar, want.gbar)
+    assert torch.equal(got.feats[:, 2], want.feats[:, 2])
+    _close(got.feats, want.feats, 1e-5)
+    _close(got.norms, want.norms, 1e-5)
+    w = args[5].cpu().numpy()
+    f = want.feats.double().cpu().numpy()[w > 0]
+    mean, sq = f.mean(0), (f * f).mean(0)
+    var = sq - mean * mean
+    # a feature that is 0 in every delivered row: 0 on both sides
+    kappa = np.divide(sq, var, out=np.where(sq > 0, np.inf, 0.0),
+                      where=var > 0)
+    kappa = np.maximum(kappa, kappa[1])          # the anchor, f1
+    bound = 2 * np.finfo(np.float32).eps * kappa + 1e-6
+    gap = (got.new_sep - want.new_sep).abs().cpu().numpy()
+    assert (gap <= bound).all(), (gap, bound)
+    gap_w = float((got.feat_w - want.feat_w).abs().max())
+    assert gap_w <= 5 * bound.max(), (gap_w, bound)
+
+
+@pytest.mark.gpu
+def test_cuda_trust_stage_floor_launches(cuda):
+    from repro_torch.kernels.trust_stage import launch_floor
+    for cluster in (False, True):
+        launch_floor(cuda, cluster)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_trust_modes_read_device_memory_past_shared_memory(cuda, dtype):
+    """A slice too wide for shared memory (L = 200,001: 25,001 columns a
+    block) takes the kernel's device-memory path in both standalone
+    modes; odd L, so 4-byte copies, a ragged last slice."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    m, L = 5, 200_001
+    g = torch.randn(m, L, generator=gen, device=cuda).to(_TDT[dtype])
+    refs = torch.randn(m, L, generator=gen, device=cuda).to(_TDT[dtype])
+    rep = torch.rand(m, generator=gen, device=cuda)
+    w = torch.ones(m, device=cuda)
+    w[2] = 0.0
+    gbar = (w @ g.float()) / w.sum()
+    med = torch.linalg.vector_norm(g.float(), dim=1).median()
+    for a, b in zip(ops.trust_score(g, gbar, refs[0].float(), rep),
+                    ops.trust_score_plain(g, gbar, refs[0].float(), rep)):
+        _close(a, b, _TOL[dtype])
+    _close(ops.trust_features(g, refs, gbar, med, w),
+           ops.trust_features_plain(g, refs, gbar, med, w), _TOL[dtype])
