@@ -25,10 +25,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``ms_cold``: the calls rotate over 4 input sets, 168 MB in bf16, so
    no call finds its inputs in the 50 MB L2), in bf16 and fp32; for the
    trust stage, the launch floor of an empty kernel on its grid, plain
-   and as an 8-block cluster;
+   and as an 8-block cluster; weighted_agg also without segments
+   (FLTrust's (30, 545098) -> (545098,), beside ``torch.mv``) and
+   topk_mask also on the flat client wire's (30, 545098) rows, with the
+   time of its threshold (``row_threshold``, ``torch.topk``) at both
+   shapes;
 4. agreement: two rounds of each FL path at a small configuration on the
    card against the same rounds on the CPU (plain versions), from one
-   initial state and one set of draws — masks and bytes exact,
+   initial state and one set of draws — masks, bytes and $ exact,
    reputation and params (and, on the defense path, the feature
    separability) within 1e-4 relative; and the serve path in fp32 at
    the test configuration (recurrentgemma-2b's layout at d_model 128,
@@ -51,6 +55,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
        stochastic_quantize twice (client wire, edge wire), topk_mask,
        the standalone trust kernels and linear_scan never; feature
        weights finite and summing to 1, residuals finite;
+   * FEDAVG, KRUM, TRIMMED_MEAN, MEDIAN and FLTRUST (the paper's Fig. 8
+     baseline arm), five rounds each at full width with the headline's
+     knobs and ``aggregator=<method>``: the flat round, each client's
+     one uplink (top-k across clouds); topk_mask once per round,
+     weighted_agg once per round on FLTRUST (its aggregate) and never on
+     the others, the trust and QSGD kernels never;
+   * DROPOUT: Cost-TrustFL at the headline's wire under the registered
+     ``dropout`` scenario (no attack, each selected client fails to
+     deliver with probability 0.3); trust_stage, weighted_agg and
+     topk_mask once per round; fewer than 30 deliver;
      params finite; bytes and $ equal the cost model's for each
      delivered mask; then the test accuracy and rounds/s of each path;
    * SERVE: ``repro_torch.launch.serve.serve`` at recurrentgemma-2b's
@@ -61,9 +75,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      tokens in the vocabulary; the parameter count held, peak memory,
      prefill ms per request and decode tokens/s.
 
-Prints one ``{"kernels": [...]}`` line (one entry per Pallas kernel; the
-fused trust stage's launches count for trust_score on both FL paths and
-for trust_features on the defense path, and those two entries give the
+Prints one ``{"kernels": [...]}`` line (one entry per Pallas kernel,
+launches per path under ``launches_by_path``; the fused trust stage's
+launches count for trust_score on the Cost-TrustFL paths and for
+trust_features on the defense path, and those two entries give the
 time, error and bound of the launch counted: the stage, scalar for
 trust_score and multi for trust_features, with their standalone modes'
 under ``standalone_*``) and, last, the ``{"ok": true, "device": ...}``
@@ -108,7 +123,7 @@ SOURCES.update(trust_score=f"{CSRC}/trust_stage.cu",
                trust_features=f"{CSRC}/trust_stage.cu")
 # the FL paths on which the fused trust_stage launch computes each
 # function (trust_features only under trust_features="multi")
-FUSED_INTO_STAGE = {"trust_score": ("headline", "defense"),
+FUSED_INTO_STAGE = {"trust_score": ("headline", "defense", "dropout"),
                     "trust_features": ("defense",)}
 # the test suite's small topology at the same headline knobs
 SMALL = dict(n_clouds=3, clients_per_cloud=4, clients_per_round=6,
@@ -117,14 +132,36 @@ HEADLINE = dict(attack="label_flip", malicious_frac=0.3, compressor="topk",
                 compress_ratio=0.1, link_policy="cross_only")
 DEFENSE = dict(attack="alie_norm", malicious_frac=0.3, trust_features="multi",
                compressor="qsgd", qsgd_levels=15, link_policy="all")
-# launches per round of each kernel on each path (0: never)
+TOPK_WIRE = dict(compressor="topk", compress_ratio=0.1,
+                 link_policy="cross_only")
+FLAT = ("fedavg", "krum", "trimmed_mean", "median", "fltrust")
+
+
+def _per_round(**launches):
+    """Launches per round of every kernel on a path (0: never)."""
+    out = dict(trust_stage=0, trust_score=0, weighted_agg=0, topk_mask=0,
+               stochastic_quantize=0, trust_features=0, linear_scan=0)
+    out.update(launches)
+    return out
+
+
+# path -> (FLConfig knobs, registered scenario or None, launches per round)
 PATHS = {
-    "headline": (HEADLINE, dict(trust_stage=1, trust_score=0, weighted_agg=1,
-                                topk_mask=1, stochastic_quantize=0,
-                                trust_features=0, linear_scan=0)),
-    "defense": (DEFENSE, dict(trust_stage=1, trust_score=0, weighted_agg=1,
-                              topk_mask=0, stochastic_quantize=2,
-                              trust_features=0, linear_scan=0)),
+    "headline": (HEADLINE, None,
+                 _per_round(trust_stage=1, weighted_agg=1, topk_mask=1)),
+    "defense": (DEFENSE, None,
+                _per_round(trust_stage=1, weighted_agg=1,
+                           stochastic_quantize=2)),
+    # the paper's Fig. 8 baseline arm at the headline's knobs: each
+    # client's one uplink, top-k across clouds (one topk_mask launch over
+    # the selected rows); FLTrust's aggregate is one weighted_agg launch
+    **{m: (dict(HEADLINE, aggregator=m), None,
+           _per_round(topk_mask=1, weighted_agg=int(m == "fltrust")))
+       for m in FLAT},
+    # Cost-TrustFL at the headline's wire under the registered dropout
+    # scenario (no attack, p_drop 0.3): the trust stage over rows with w = 0
+    "dropout": (TOPK_WIRE, "dropout",
+                _per_round(trust_stage=1, weighted_agg=1, topk_mask=1)),
 }
 # the serve path: recurrentgemma-2b at full width, as the launcher runs it
 SERVE = dict(arch="recurrentgemma-2b", batch=4, requests=8, prompt_len=4096,
@@ -290,6 +327,23 @@ def kernel_phase(torch, ops, dev):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch.mm(w_mat, g)),
         shape=f"G ({m}, {D}) f32 -> ({k}, {D})")
+    # FLTrust's aggregate: the same G, one segment -> (D,)
+    rn = ref_norm[:1]
+    got = ops.weighted_agg(g, ts, norms, rn)
+    want = ops.weighted_agg_plain(g, ts, norms, rn)
+    check(close(torch, got, want, 1e-5), f"weighted_agg unsegmented: max "
+          f"err {max_err(torch, got, want)} > 1e-5")
+    w1 = ops.agg_weights(ts, norms, rn, None, 1)
+    check(close(torch, torch.mv(g.t(), w1), want, 1e-5),
+          "weighted_agg unsegmented: the library yardstick disagrees")
+    run = lambda: ops.weighted_agg_rows(g, w1)  # noqa: E731
+    rec["weighted_agg"]["flat"] = dict(
+        max_abs_err=max_err(torch, got, want),
+        ms=time_ms(torch, run), call_ms=call_ms(torch, run),
+        plain_ms=time_ms(torch, lambda: ops.weighted_agg_rows_plain(g, w1)),
+        bound_ms=bound(4 * (m * D + m + D), 2 * m * D)[0],
+        library_ms=time_ms(torch, lambda: torch.mv(g.t(), w1)),
+        shape=f"G ({m}, {D}) f32 -> ({D},) (FLTrust, no segments)")
 
     # topk_mask: the (3, 545098) edge uplinks, k = 54,510 per row
     y = torch.randn(k, D, generator=gen, device=dev) * 1e-3
@@ -312,7 +366,29 @@ def kernel_phase(torch, ops, dev):
         plain_ms=time_ms(torch, lambda: ops.topk_mask_plain(
             y, thr, fp16_roundtrip=True)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"G ({k}, {D}) f32, fp16 round trip fused")
+        shape=f"G ({k}, {D}) f32, fp16 round trip fused",
+        # the threshold: torch.topk outside the kernel, as the reference
+        # takes it from lax.top_k (read the rows, write one value a row)
+        row_threshold_ms=time_ms(torch, lambda: ops.row_threshold(y, k_keep)),
+        row_threshold_bound_ms=bound(4 * (k * D + k), k * D)[0])
+    # the flat client wire: every selected client's row, (30, D)
+    y30 = torch.randn(m, D, generator=gen, device=dev) * 1e-3
+    thr30 = ops.row_threshold(y30, k_keep)
+    got = ops.topk_mask(y30, thr30, fp16_roundtrip=True)
+    want = ops.topk_mask_plain(y30, thr30, fp16_roundtrip=True)
+    check(torch.equal(got, want), "topk_mask (30 rows): not exact")
+    run = lambda: ops.topk_mask(y30, thr30, fp16_roundtrip=True)  # noqa: E731
+    rec["topk_mask"]["flat"] = dict(
+        max_abs_err=max_err(torch, got, want),
+        ms=time_ms(torch, run), call_ms=call_ms(torch, run),
+        plain_ms=time_ms(torch, lambda: ops.topk_mask_plain(
+            y30, thr30, fp16_roundtrip=True)),
+        bound_ms=bound(4 * (2 * m * D + m), m * D)[0], library_ms=None,
+        row_threshold_ms=time_ms(torch, lambda: ops.row_threshold(
+            y30, k_keep)),
+        row_threshold_bound_ms=bound(4 * (m * D + m), m * D)[0],
+        shape=f"G ({m}, {D}) f32, k = {k_keep}, fp16 round trip fused "
+              "(the flat client wire)")
 
     # stochastic_quantize: the client wire (30, D) and the edge wire
     # (3, D) at 15 levels, a zero row included; q and the fused round
@@ -587,10 +663,16 @@ def agreement_phase(torch, dev, path: str):
     from repro_torch.federated import engine as engine_mod
     from repro_torch.federated.simulation import make_data, make_topology
 
-    fl = FLConfig(**SMALL, **PATHS[path][0])
+    from repro_torch.scenarios import get_scenario
+
+    knobs, scenario, _ = PATHS[path]
+    scenario = get_scenario(scenario) if scenario else None
+    fl = FLConfig(**SMALL, **knobs)
+    if scenario is not None:
+        fl = scenario.apply(fl)
     topo = make_topology(fl)
     data = make_data(fl, n_samples=600, samples_per_client=16)
-    static = engine_mod.static_from(fl, topo)
+    static = engine_mod.static_from(fl, topo, fl.aggregator, scenario)
     cpu = torch.device("cpu")
     engs = {d: engine_mod.Engine(static, d) for d in (cpu, dev)}
     cds = {d: engine_mod.make_client_data(fl, topo, data, 0, device=d)
@@ -613,9 +695,10 @@ def agreement_phase(torch, dev, path: str):
         mask_g = outs[dev].delivered.cpu().numpy()
         check(np.array_equal(mask_c, mask_g),
               f"{path} round {t}: masks differ")
-        check(np.array_equal(engs[cpu].host_round_accounting(mask_c[None]),
-                             engs[dev].host_round_accounting(mask_g[None])),
-              f"{path} round {t}: bytes/$ differ")
+        check(np.array_equal(
+            engs[cpu].host_round_accounting(mask_c[None], t0=t),
+            engs[dev].host_round_accounting(mask_g[None], t0=t)),
+            f"{path} round {t}: bytes/$ differ")
         worst["rep"] = max(worst["rep"], rel(states[dev].rep_ema,
                                              states[cpu].rep_ema))
         worst["feat_sep"] = max(worst["feat_sep"], rel(
@@ -771,22 +854,29 @@ def main_path_phase(torch, ops, dev, path: str):
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.cost import CostModel
     from repro_torch.federated import FLServer, make_data, make_topology
+    from repro_torch.scenarios import get_scenario
 
-    knobs, per_round = PATHS[path]
+    knobs, scenario, per_round = PATHS[path]
     fl = FLConfig(**knobs)
+    if scenario is not None:
+        fl = get_scenario(scenario).apply(fl)
     topo = make_topology(fl)
     t0 = time.perf_counter()
     data = make_data(fl)
-    server = FLServer(fl, topo, data, seed=0, device=dev)
+    server = FLServer(fl, topo, data, method=fl.aggregator, seed=0,
+                      scenario=scenario, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     d = server.d_params
     check(d == 545_098, f"D = {d}, expected the paper CNN's 545,098")
     cm = CostModel(fl.c_intra, fl.c_cross)
-    if path == "headline":      # top-k on the cross-cloud edge uplinks
-        client_pl = np.full(topo.n_clients, 4.0 * d)
-        edge_pl = np.full(topo.n_clouds,
-                          float(TopKCodec(fl.compress_ratio).payload_bytes(d)))
+    hier = fl.aggregator == "cost_trustfl"
+    if fl.compressor == "topk":  # top-k on the cross-cloud links
+        topk = float(TopKCodec(fl.compress_ratio).payload_bytes(d))
+        same = topo.cloud_of == topo.aggregator_cloud
+        client_pl = (np.full(topo.n_clients, 4.0 * d) if hier
+                     else np.where(same, 4.0 * d, topk))
+        edge_pl = np.full(topo.n_clouds, topk)
         edge_pl[topo.aggregator_cloud] = 4.0 * d
     else:                       # QSGD on every uplink: fp32 scale + 5 bits
         qsgd = 4 + math.ceil(5 * d / 8)
@@ -802,12 +892,15 @@ def main_path_phase(torch, ops, dev, path: str):
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t1)
         sel = met.selected
-        check(int(sel.sum()) == fl.clients_per_round,
-              f"{path} round {t}: {int(sel.sum())} selected")
-        ib, cb = cm.round_bytes(topo, sel, d, client_payload=client_pl,
+        n_sel = int(sel.sum())
+        check(1 <= n_sel < fl.clients_per_round if scenario == "dropout"
+              else n_sel == fl.clients_per_round,
+              f"{path} round {t}: {n_sel} delivered")
+        ib, cb = cm.round_bytes(topo, sel, d, hierarchical=hier,
+                                client_payload=client_pl,
                                 edge_payload=edge_pl)
-        cost = cm.round_cost(topo, sel, d, client_payload=client_pl,
-                             edge_payload=edge_pl)
+        cost = cm.round_cost(topo, sel, d, hierarchical=hier,
+                             client_payload=client_pl, edge_payload=edge_pl)
         check((met.extra["intra_bytes"], met.extra["cross_bytes"], met.cost)
               == (ib, cb, cost),
               f"{path} round {t}: bytes/$ differ from CostModel")
@@ -913,8 +1006,10 @@ def profile_phase(torch, dev, out, path: str, rounds: int = 2):
     from repro_torch.configs.base import FLConfig
     from repro_torch.federated import FLServer, make_data, make_topology
 
-    fl = FLConfig(**PATHS[path][0])
-    server = FLServer(fl, make_topology(fl), make_data(fl), seed=0,
+    knobs, scenario, _ = PATHS[path]
+    fl = FLConfig(**knobs)
+    server = FLServer(fl, make_topology(fl), make_data(fl),
+                      method=fl.aggregator, seed=0, scenario=scenario,
                       device=dev)
     for t in range(2):
         server.run_round(t)
@@ -1046,9 +1141,10 @@ def main() -> int:
             entry.update({f"standalone_{key}": entry[key] for key in keys})
             entry.update({key: rec["trust_stage"][key + tag] for key in keys})
         kernels.append(entry)
-    for k in kernels:       # the cold-L2 time where phase 3 took one
-        if "ms_cold" in rec[k["name"]]:
-            k["ms_cold"] = rec[k["name"]]["ms_cold"]
+    for k in kernels:       # the cold-L2 time, the flat path's shape
+        for extra in ("ms_cold", "flat", "row_threshold_ms"):
+            if extra in rec[k["name"]]:
+                k[extra] = rec[k["name"]][extra]
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, kernels=rec, launches=counts, agreement=worst,

@@ -1,9 +1,11 @@
 """The Cost-TrustFL round as ``Engine.step(state, data, t) -> (state,
-out)``: the port of the hierarchical branch of the reference's
-``round_step`` (``repro/federated/engine.py``).
+out)``: the port of the reference's ``round_step``
+(``repro/federated/engine.py``), its hierarchical branch
+(``method="cost_trustfl"``) and its flat branch (the baselines
+``fedavg``, ``krum``, ``trimmed_mean``, ``median`` and ``fltrust``).
 
-One round: Eq. 10 selection (per-cloud quota + tie-break noise), local
-training of the selected clients and of the per-cloud references, the
+One hierarchical round: Eq. 10 selection (per-cloud quota + tie-break
+noise), local training of the selected clients and of the per-cloud references, the
 update attack on the active malicious rows, the client→edge wire (error
 feedback, residuals per sender), Eq. 7 contribution with the median
 damp and, under ``trust_features="multi"``, the multi-feature gate,
@@ -15,8 +17,18 @@ launch of the ``trust_stage`` kernel, Eq. 12 + 13 go through
 ``weighted_agg``, and the wires through ``topk_mask`` (top-k) or
 ``stochastic_quantize`` (QSGD).
 
-Round randomness is a :class:`RoundDraws`: the selection noise, the
-minibatch indices of the clients and of the reference training, and —
+One flat round: a uniform draw of the selected set, local training, the
+attack, each client's one uplink through the intra codec (clients of the
+aggregator's cloud) or the cross codec (the rest), then the method's
+aggregate of ``repro_torch.core.robust`` (FLTrust through
+``weighted_agg``). A scenario's :class:`~repro_torch.scenarios.JitHooks`
+add dropout (non-delivered rows are masked, never dropped from the
+fixed-size selected set), a malice warmup and a ``c_cross`` price
+schedule.
+
+Round randomness is a :class:`RoundDraws`: the selection noise (flat:
+the permutation), the dropout uniforms, the minibatch indices of the
+clients and of the reference training, and —
 where the configuration reads them — the wires' QSGD noise and the
 gaussian attack's normals. Own mode (:meth:`Engine.draws`) draws them
 from ``torch.Generator`` streams on the device seeded from
@@ -39,15 +51,18 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core import features as feats_mod
 from repro_torch.core.attacks import (NOISY_ATTACKS, UPDATE_ATTACKS,
                                       apply_update_attack)
+from repro_torch.core import robust
 from repro_torch.core.cost import (CostModel, hierarchical_unit_costs_torch,
                                    round_bytes_torch)
 from repro_torch.core.fl_types import CloudTopology
 from repro_torch.core.reputation import ReputationState
-from repro_torch.core.selection import exploration_quota, select_clients
+from repro_torch.core.selection import (exploration_quota, select_clients,
+                                        selected_count)
 from repro_torch.core.trust import cloud_trust
 from repro_torch.data.pipeline import FederatedData
 from repro_torch.federated import client as client_mod
 from repro_torch.kernels import ops
+from repro_torch.scenarios.base import JitHooks, Scenario
 
 Tensor = torch.Tensor
 
@@ -55,9 +70,18 @@ _GB = 1024.0 ** 3
 REF_BATCH = 32          # reference LocalTrain batch (client default)
 EPS = 1e-12
 
-# own-mode stream tags (selection and the wires keep the reference's
-# fold numbers; the edge wire's codec sub-folds are 2 = intra, 3 = cross)
+METHODS = ("cost_trustfl", "fedavg", "krum", "trimmed_mean", "median",
+           "fltrust")
+# aggregators whose math is a 0-weighted sum over masked rows, so safe
+# when dropout zeroes the non-delivered rows of the selected set; the
+# order statistics would read the zero rows as clients
+MASKED_DELIVERY_OK = ("cost_trustfl", "fedavg", "fltrust")
+
+# own-mode stream tags (selection, dropout and the wires keep the
+# reference's fold numbers; the flat client wire's codec sub-folds are
+# 0 = intra, 1 = cross, the edge wire's 2 = intra, 3 = cross)
 _FOLD_SELECT = 131
+_FOLD_DROPOUT = 137
 _FOLD_TRAIN = 1
 _FOLD_REF = 2
 _FOLD_ATTACK = 239
@@ -106,18 +130,22 @@ class ClientData(NamedTuple):
 class RoundDraws(NamedTuple):
     """One round's randomness. The optional fields are read only where
     the configuration needs them; ``None`` there means "draw in own mode
-    after selection"."""
-    select_noise: Tensor         # (N,) standard normals (Eq. 10 tie-break)
+    after selection" (or, for ``select_noise``/``perm``, "not this
+    branch's")."""
+    select_noise: Optional[Tensor]  # (N,) standard normals (Eq. 10 tie-break; hierarchical)
     client_idx: Tensor           # (N, steps, batch) minibatch indices
     ref_idx: Tensor              # (ref_steps, REF_BATCH), shared by clouds
     client_noise: Optional[Tensor] = None   # (N, D) U[0,1), client wire, row = client id
     edge_noise: Optional[Tensor] = None     # (K, D) U[0,1), edge wire, row = cloud
     attack_noise: Optional[Tensor] = None   # (m, D) N(0,1), gaussian attack, row = selected row
+    perm: Optional[Tensor] = None           # (N,) permutation, flat selection perm[:m]
+    drop_u: Optional[Tensor] = None         # (N,) U[0,1), dropout (delivered iff >= p_drop)
 
 
 @dataclass(frozen=True)
 class EngineStatic:
-    """The engine-relevant slice of (FLConfig, topology)."""
+    """The engine-relevant slice of (FLConfig, topology, scenario)."""
+    method: str
     cloud_of: Tuple[int, ...]
     n_clouds: int
     aggregator_cloud: int
@@ -136,15 +164,31 @@ class EngineStatic:
     lr: float
     server_lr: float
     ema_gamma: float
+    malicious_frac: float
     compressor: str
     compress_ratio: float
     qsgd_levels: int
     link_policy: str
+    p_drop: float
+    malice_warmup: int
+    price_multipliers: Tuple[float, ...]
     trust_features: str
 
     @property
+    def hierarchical(self) -> bool:
+        return self.method == "cost_trustfl"
+
+    @property
     def multi_features(self) -> bool:
-        return self.trust_features == "multi"
+        """The multi-feature gate refines Cost-TrustFL's Eq. 7; the flat
+        baselines have no Eq. 7 for it to gate."""
+        return self.hierarchical and self.trust_features == "multi"
+
+    def c_cross_at(self, t: int) -> float:
+        """Round t's float32 cross-cloud price, ``c_cross·mult[t % len]``."""
+        mults = self.price_multipliers
+        return float(np.float32(self.c_cross)
+                     * np.float32(mults[t % len(mults)]))
 
     def topology(self) -> CloudTopology:
         return CloudTopology(cloud_of=np.array(self.cloud_of),
@@ -152,17 +196,34 @@ class EngineStatic:
                              aggregator_cloud=self.aggregator_cloud)
 
 
+def hooks_of(scenario: Optional[Scenario]) -> JitHooks:
+    if scenario is None or scenario.jit_hooks is None:
+        return JitHooks()
+    return scenario.jit_hooks
+
+
 def static_from(flcfg: FLConfig, topo: CloudTopology,
                 method: str = "cost_trustfl",
+                scenario: Optional[Scenario] = None,
                 input_shape: Tuple[int, ...] = (32, 32, 3),
                 n_classes: int = 10) -> EngineStatic:
-    """Freeze (FLConfig, topology); configurations outside this slice of
-    the port raise ``NotImplementedError`` naming the slice they wait for
-    (ROADMAP queue A)."""
-    if method != "cost_trustfl":
+    """Freeze (FLConfig, topology, scenario). What the reference routes to
+    its host loop — a scenario with host hooks and no ``jit_hooks``, and
+    dropout under an order-statistic aggregator — raises
+    ``NotImplementedError`` naming the slice it waits for (ROADMAP queue
+    A item 3)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; known: {METHODS}")
+    if scenario is not None and not scenario.jittable:
         raise NotImplementedError(
-            f"method={method!r} is not ported yet: the baselines come with "
-            "ROADMAP queue A item 5")
+            f"scenario {scenario.name!r} has host hooks and no jit_hooks: "
+            "the host round loop is not ported yet (ROADMAP queue A item 3)")
+    h = hooks_of(scenario)
+    if h.p_drop > 0 and method not in MASKED_DELIVERY_OK:
+        raise NotImplementedError(
+            f"dropout (p_drop={h.p_drop}) with method={method!r} runs in the "
+            "reference's host round loop, not ported yet (ROADMAP queue A "
+            "item 3)")
     if flcfg.attack not in UPDATE_ATTACKS:
         raise ValueError(f"unknown attack {flcfg.attack!r}; known: "
                          f"{sorted(UPDATE_ATTACKS)}")
@@ -173,7 +234,7 @@ def static_from(flcfg: FLConfig, topo: CloudTopology,
     build_link_policy(flcfg.compressor, ratio=flcfg.compress_ratio,
                       levels=flcfg.qsgd_levels, link_policy=flcfg.link_policy)
     return EngineStatic(
-        cloud_of=tuple(int(c) for c in topo.cloud_of),
+        method=method, cloud_of=tuple(int(c) for c in topo.cloud_of),
         n_clouds=topo.n_clouds, aggregator_cloud=topo.aggregator_cloud,
         input_shape=tuple(input_shape), n_classes=int(n_classes),
         clients_per_round=flcfg.clients_per_round,
@@ -183,8 +244,11 @@ def static_from(flcfg: FLConfig, topo: CloudTopology,
         attack_z=flcfg.attack_z, local_epochs=flcfg.local_epochs,
         local_batch=flcfg.local_batch, lr=flcfg.lr,
         server_lr=flcfg.server_lr, ema_gamma=flcfg.ema_gamma,
-        compressor=flcfg.compressor, compress_ratio=flcfg.compress_ratio,
-        qsgd_levels=flcfg.qsgd_levels, link_policy=flcfg.link_policy,
+        malicious_frac=flcfg.malicious_frac, compressor=flcfg.compressor,
+        compress_ratio=flcfg.compress_ratio, qsgd_levels=flcfg.qsgd_levels,
+        link_policy=flcfg.link_policy, p_drop=float(h.p_drop),
+        malice_warmup=int(h.malice_warmup),
+        price_multipliers=tuple(float(m) for m in h.price_multipliers),
         trust_features=flcfg.trust_features)
 
 
@@ -295,18 +359,23 @@ def make_client_data(flcfg: FLConfig, topo: CloudTopology,
 def host_round_accounting(static: EngineStatic, d_params: int,
                           client_payload: np.ndarray,
                           edge_payload: np.ndarray,
-                          delivered_rounds: np.ndarray) -> np.ndarray:
+                          delivered_rounds: np.ndarray,
+                          t0: int = 0) -> np.ndarray:
     """Byte-exact float64 (cost, intra_bytes, cross_bytes) rows for a
-    (T, N) stack of delivered masks."""
-    topo = static.topology()
-    cm = CostModel(static.c_intra, static.c_cross)
+    (T, N) stack of delivered masks of rounds t0, t0 + 1, ..., each billed
+    at its round's ``c_cross`` multiplier."""
+    st = static
+    topo = st.topology()
+    mults = st.price_multipliers
     rows = np.empty((len(delivered_rounds), 3), np.float64)
     for i, dmask in enumerate(np.asarray(delivered_rounds, bool)):
+        cm = CostModel(st.c_intra,
+                       st.c_cross * mults[(t0 + i) % len(mults)])
         intra_b, cross_b = cm.round_bytes(
-            topo, dmask, d_params, hierarchical=True,
+            topo, dmask, d_params, hierarchical=st.hierarchical,
             client_payload=client_payload, edge_payload=edge_payload)
         cost = cm.round_cost(
-            topo, dmask, d_params, hierarchical=True,
+            topo, dmask, d_params, hierarchical=st.hierarchical,
             client_payload=client_payload, edge_payload=edge_payload)
         rows[i] = (cost, intra_b, cross_b)
     return rows
@@ -324,6 +393,7 @@ class Engine:
         topo = st.topology()
         self.n, self.k = topo.n_clients, topo.n_clouds
         self.agg = topo.aggregator_cloud
+        self.hier = hier = st.hierarchical
         self.cloud_of_np = np.array(st.cloud_of)
         self.cloud_of = torch.as_tensor(self.cloud_of_np, device=dev)
         self.cloud_sizes = np.bincount(self.cloud_of_np, minlength=self.k)
@@ -342,10 +412,20 @@ class Engine:
             st.compressor, ratio=st.compress_ratio, levels=st.qsgd_levels,
             link_policy=st.link_policy)
         self.client_payload, self.edge_payload = lp.payload_vectors(
-            topo, self.d_params, hierarchical=True)
-        # every client→edge hop is intra-class
-        self.client_wire_active = not lp.intra.is_identity
-        self.edge_wire_active = lp.any_active
+            topo, self.d_params, hierarchical=hier)
+        # hierarchical: every client→edge hop is intra-class, and the
+        # cloud aggregates cross the edge wire; flat: a client's one hop
+        # is intra or cross by co-location, and there is no edge wire
+        self.client_wire_active = ((not lp.intra.is_identity) if hier
+                                   else lp.any_active)
+        self.edge_wire_active = hier and lp.any_active
+        self.client_wire_noise = (lp.intra.needs_noise if hier else
+                                  lp.intra.needs_noise or lp.cross.needs_noise)
+        self.edge_wire_noise = self.edge_wire_active and (
+            lp.intra.needs_noise or lp.cross.needs_noise)
+        # the flat client wire's codec sub-fold of each client: 0 (intra)
+        # in the aggregator's cloud, 1 (cross) elsewhere
+        self.client_sub = np.where(self.cloud_of_np == self.agg, 0, 1)
         # the one stochastic codec of the edge wire reads the reference's
         # codec sub-fold: 3 (cross) when cross-cloud links quantize, else
         # 2 (intra, ``intra_only``)
@@ -354,7 +434,9 @@ class Engine:
                                   device=dev)
         self.ep = torch.as_tensor(self.edge_payload, dtype=torch.float32,
                                   device=dev)
-        self.quota = exploration_quota(st.cost_lambda)
+        self.quota = exploration_quota(st.cost_lambda) if hier else 0
+        self.m_total = selected_count(self.n, st.clients_per_round,
+                                      self.quota, self.cloud_of_np)
 
     # -- state and randomness ------------------------------------------------
     def init_state(self, seed: int,
@@ -390,25 +472,32 @@ class Engine:
                 client_mod.steps_for(data.ref_x.shape[1], st.local_epochs,
                                      REF_BATCH))
 
-    def sender_noise(self, seed: int, t: int, folds: Tuple[int, ...],
-                     senders) -> Tensor:
-        """(len(senders), D) U[0, 1) wire noise, row i from the own-mode
-        stream of sender ``senders[i]`` under ``folds``."""
+    def _noise_rows(self, seed: int, t: int, paths) -> Tensor:
+        """(len(paths), D) U[0, 1) wire noise, row i from the own-mode
+        stream of round t under the fold path ``paths[i]``."""
         dev = self.device
-        ids = [int(i) for i in senders]
-        out = torch.empty(len(ids), self.d_params, device=dev)
-        for row, i in enumerate(ids):
+        out = torch.empty(len(paths), self.d_params, device=dev)
+        for row, folds in enumerate(paths):
             torch.rand(self.d_params, device=dev, out=out[row],
-                       generator=_stream(seed, t, *folds, i, device=dev))
+                       generator=_stream(seed, t, *folds, device=dev))
         return out
 
     def client_noise(self, seed: int, t: int, senders) -> Tensor:
-        return self.sender_noise(seed, t, (_FOLD_CLIENT_WIRE,), senders)
+        """(len(senders), D) client-wire noise, row i from the stream of
+        client ``senders[i]``: (211, client) on the hierarchical path,
+        (211, sub-fold, client) on the flat one (sub-fold 0 in the
+        aggregator's cloud, 1 elsewhere, as the reference folds 0 into
+        its intra pass and 1 into its cross pass)."""
+        ids = [int(i) for i in senders]
+        if self.hier:
+            return self._noise_rows(seed, t, [(_FOLD_CLIENT_WIRE, i)
+                                              for i in ids])
+        return self._noise_rows(seed, t, [
+            (_FOLD_CLIENT_WIRE, int(self.client_sub[i]), i) for i in ids])
 
     def edge_noise(self, seed: int, t: int) -> Tensor:
-        return self.sender_noise(seed, t,
-                                 (_FOLD_EDGE_WIRE, self.edge_noise_fold),
-                                 range(self.k))
+        return self._noise_rows(seed, t, [
+            (_FOLD_EDGE_WIRE, self.edge_noise_fold, c) for c in range(self.k)])
 
     def draws(self, seed: int, t: int, data: ClientData,
               full_noise: bool = False) -> RoundDraws:
@@ -418,25 +507,29 @@ class Engine:
         cloud now (the same streams, so the round is the same) — for
         running one set of draws on two devices."""
         dev = self.device
+        st = self.static
         steps, ref_steps = self.schedule(data)
-        lp = self.link_policy
-        full_client = full_noise and lp.intra.needs_noise
-        full_edge = full_noise and (lp.intra.needs_noise
-                                    or lp.cross.needs_noise)
+        sel_gen = _stream(seed, t, _FOLD_SELECT, device=dev)
         return RoundDraws(
-            select_noise=torch.randn(
-                self.n, device=dev,
-                generator=_stream(seed, t, _FOLD_SELECT, device=dev)),
+            select_noise=(torch.randn(self.n, device=dev, generator=sel_gen)
+                          if self.hier else None),
             client_idx=torch.randint(
                 0, data.client_x.shape[1],
-                (self.n, steps, self.static.local_batch), device=dev,
+                (self.n, steps, st.local_batch), device=dev,
                 generator=_stream(seed, t, _FOLD_TRAIN, device=dev)),
             ref_idx=torch.randint(
                 0, data.ref_x.shape[1], (ref_steps, REF_BATCH), device=dev,
                 generator=_stream(seed, t, _FOLD_REF, device=dev)),
             client_noise=(self.client_noise(seed, t, range(self.n))
-                          if full_client else None),
-            edge_noise=self.edge_noise(seed, t) if full_edge else None)
+                          if full_noise and self.client_wire_noise
+                          else None),
+            edge_noise=(self.edge_noise(seed, t)
+                        if full_noise and self.edge_wire_noise else None),
+            perm=(None if self.hier else
+                  torch.randperm(self.n, device=dev, generator=sel_gen)),
+            drop_u=(torch.rand(self.n, device=dev, generator=_stream(
+                seed, t, _FOLD_DROPOUT, device=dev))
+                    if st.p_drop > 0 else None))
 
     def attack_noise(self, seed: int, t: int, m: int) -> Tensor:
         """(m, D) standard normals of the gaussian attack."""
@@ -444,7 +537,72 @@ class Engine:
                            generator=_stream(seed, t, _FOLD_ATTACK,
                                              device=self.device))
 
-    # -- the edge→global wire ------------------------------------------------
+    # -- selection and delivery ----------------------------------------------
+    def select(self, rep_ema: Tensor, c_cross_t: float,
+               draws: RoundDraws) -> Tensor:
+        """(N,) bool selected set: Eq. 10 with the per-cloud quota and the
+        tie-break noise (hierarchical), or ``perm[:m]`` (flat)."""
+        st = self.static
+        if self.hier:
+            unit_costs = hierarchical_unit_costs_torch(
+                self.cloud_of, self.cloud_sizes, self.agg, st.c_intra,
+                c_cross_t)
+            return select_clients(rep_ema, unit_costs, st.clients_per_round,
+                                  st.cost_lambda, per_cloud_min=self.quota,
+                                  cloud_of=self.cloud_of_np,
+                                  noise=draws.select_noise)
+        if draws.perm is None:
+            raise ValueError("the flat selection needs draws.perm")
+        sel = torch.zeros(self.n, dtype=torch.bool, device=self.device)
+        sel[draws.perm[:self.m_total].long()] = True
+        return sel
+
+    def deliver(self, sel: Tensor, draws: RoundDraws) -> Tensor:
+        """(N,) bool delivered mask: ``sel`` without the dropped clients
+        (each dropped when its uniform is below ``p_drop``); when that
+        leaves nobody, the first selected client delivers."""
+        p_drop = self.static.p_drop
+        if p_drop <= 0.0:
+            return sel
+        if draws.drop_u is None:
+            raise ValueError("dropout needs draws.drop_u")
+        out = sel & (draws.drop_u >= p_drop)
+        need = sel.any() & ~out.any()
+        first = torch.arange(self.n, device=self.device) == torch.argmax(
+            sel.to(torch.int32))
+        return out | (need & first & sel)
+
+    # -- the wires -----------------------------------------------------------
+    def client_wire(self, flat_sel: Tensor, res_client: Tensor,
+                    sel_idx: Tensor, valid: Tensor, draws: RoundDraws,
+                    seed: int, t: int) -> Tensor:
+        """Round-trip the selected rows through their uplink codec with
+        error feedback (the selected senders' rows of ``res_client`` are
+        updated in place); rows that did not deliver pass through and
+        keep their residual. Hierarchical: every hop takes the intra
+        codec. Flat: the intra codec on the aggregator's cloud, the cross
+        codec elsewhere; under ``all`` (one codec object) that is one
+        round trip over every delivered row (one launch), each row's QSGD
+        noise from its own sub-fold."""
+        lp = self.link_policy
+        noise = None
+        if self.client_wire_noise:
+            noise = (draws.client_noise[sel_idx]
+                     if draws.client_noise is not None
+                     else self.client_noise(seed, t, sel_idx.tolist()))
+        cur = res_client[sel_idx]
+        if self.hier or lp.intra is lp.cross:
+            flat_sel, cur = ef_step_masked(lp.intra, flat_sel, cur, valid,
+                                           noise)
+        else:
+            same = self.cloud_of[sel_idx] == self.agg
+            for codec, mask in ((lp.intra, valid & same),
+                                (lp.cross, valid & ~same)):
+                flat_sel, cur = ef_step_masked(codec, flat_sel, cur, mask,
+                                               noise)
+        res_client.index_copy_(0, sel_idx, cur)
+        return flat_sel
+
     def edge_wire(self, cloud_aggs: Tensor, res_edge: Tensor,
                   active: Tensor, noise: Optional[Tensor]
                   ) -> Tuple[Tensor, Tensor]:
@@ -476,52 +634,84 @@ class Engine:
         draws = RoundDraws(*(None if d is None
                              else torch.as_tensor(d, device=dev)
                              for d in draws))
-        n, k = self.n, self.k
-        lp = self.link_policy
+        c_cross_t = st.c_cross_at(t)
 
-        # Eq. 10 selection (every selected client delivers in this slice)
-        unit_costs = hierarchical_unit_costs_torch(
-            self.cloud_of, self.cloud_sizes, self.agg, st.c_intra, st.c_cross)
-        sel = select_clients(state.rep_ema, unit_costs, st.clients_per_round,
-                             st.cost_lambda, per_cloud_min=self.quota,
-                             cloud_of=self.cloud_of_np,
-                             noise=draws.select_noise)
-        delivered = sel
+        # selection, then delivery (dropped clients train too — fixed
+        # shapes — but are masked below)
+        sel = self.select(state.rep_ema, c_cross_t, draws)
+        delivered = self.deliver(sel, draws)
         sel_idx = torch.nonzero(sel).reshape(-1)                 # ascending
         valid = delivered[sel_idx]
 
-        # local training of the selected clients and the cloud references
+        # local training of the selected clients and, where the method
+        # reads them, the cloud references
         upd = client_mod.local_train(
             state.params, data.client_x[sel_idx], data.client_y[sel_idx],
             draws.client_idx[sel_idx].long(), lr=st.lr)
         flat_sel = ravel_rows(upd)                                # (m, D)
-        ref_idx = draws.ref_idx.long()[None].expand(k, -1, -1)
-        ref_flat = ravel_rows(client_mod.local_train(
-            state.params, data.ref_x, data.ref_y, ref_idx, lr=st.lr))
+        ref_flat = None
+        if self.hier or st.method == "fltrust":
+            ref_idx = draws.ref_idx.long()[None].expand(self.k, -1, -1)
+            ref_flat = ravel_rows(client_mod.local_train(
+                state.params, data.ref_x, data.ref_y, ref_idx, lr=st.lr))
 
-        # update-level attack on this round's active malicious rows
+        # update-level attack on this round's ACTIVE malicious rows
         if UPDATE_ATTACKS[st.attack] is not None:
+            mal = data.malicious
+            if t < st.malice_warmup:
+                mal = torch.zeros_like(mal)
             noise = draws.attack_noise
             if st.attack in NOISY_ATTACKS and noise is None:
                 noise = self.attack_noise(state.seed, t, flat_sel.shape[0])
             flat_sel = apply_update_attack(
-                st.attack, flat_sel, data.malicious[sel_idx] & valid, noise,
+                st.attack, flat_sel, mal[sel_idx] & valid, noise,
                 sigma=st.gaussian_sigma, scale=st.attack_scale,
-                z=st.attack_z)
+                z=st.attack_z, valid=valid if st.p_drop > 0 else None)
 
-        # client→edge wire, EF residuals gathered/scattered per sender
         res_client = state.res_client
         if self.client_wire_active:
-            noise = None
-            if lp.intra.needs_noise:
-                noise = (draws.client_noise[sel_idx]
-                         if draws.client_noise is not None
-                         else self.client_noise(state.seed, t,
-                                                sel_idx.tolist()))
-            flat_sel, cur = ef_step_masked(lp.intra, flat_sel,
-                                           res_client[sel_idx], valid, noise)
-            res_client.index_copy_(0, sel_idx, cur)
+            flat_sel = self.client_wire(flat_sel, res_client, sel_idx, valid,
+                                        draws, state.seed, t)
+        # what did not deliver aggregates as a zero row
+        if st.p_drop > 0:
+            flat_sel = torch.where(valid[:, None], flat_sel, 0.0)
 
+        if self.hier:
+            update, new_rep, res_edge, new_feat_sep, feat_w = (
+                self._hierarchical_update(state, flat_sel, ref_flat,
+                                          sel_idx, valid, draws, t))
+        else:
+            update = self._flat_update(flat_sel, valid, ref_flat)
+            new_rep, res_edge = state.rep_ema, state.res_edge
+            new_feat_sep, feat_w = state.feat_sep, torch.zeros(0, device=dev)
+
+        # w <- w - eta * g
+        delta = unflatten_like(update * st.server_lr, state.params)
+        params = {kk: state.params[kk] - delta[kk] for kk in state.params}
+
+        # float32 wire accounting mirror (FLServer bills float64 on host)
+        intra_b, cross_b = round_bytes_torch(delivered, self.cloud_of,
+                                             self.agg, self.cp, self.ep,
+                                             hierarchical=self.hier)
+        cost = (intra_b * st.c_intra + cross_b * c_cross_t) / _GB
+        new_state = RoundState(
+            params=params, rep_ema=new_rep, res_client=res_client,
+            res_edge=res_edge, cum_cost=state.cum_cost + cost,
+            cum_intra_bytes=state.cum_intra_bytes + intra_b,
+            cum_cross_bytes=state.cum_cross_bytes + cross_b,
+            feat_sep=new_feat_sep, seed=state.seed)
+        out = RoundOut(delivered=delivered, rep=new_rep, cost=cost,
+                       intra_bytes=intra_b, cross_bytes=cross_b,
+                       feat_weights=feat_w)
+        return new_state, out
+
+    def _hierarchical_update(self, state: RoundState, flat_sel: Tensor,
+                             ref_flat: Tensor, sel_idx: Tensor,
+                             valid: Tensor, draws: RoundDraws, t: int):
+        """Cost-TrustFL's Eq. 5–13 on the wire view: (update, new_rep,
+        res_edge, new_feat_sep, feat_w)."""
+        st, dev = self.static, self.device
+        k = self.k
         # the trust stage reads the attacked + compressed wire view in
         # place (the last layer's columns), in one kernel launch: Eq. 7
         # with the median damp, under "multi" the feature gate (the
@@ -532,7 +722,7 @@ class Engine:
         w = valid.to(torch.float32)
         stage = ops.trust_stage(
             flat_sel, ref_flat, self.ll_lo, self.ll_len, sel_cloud, w,
-            state.rep_ema, sel_idx, st.ema_gamma, n,
+            state.rep_ema, sel_idx, st.ema_gamma, self.n,
             feat_sep=state.feat_sep if st.multi_features else None, eps=EPS)
         new_rep = state.rep_ema.clone()
         new_rep[sel_idx] = stage.rep_sel
@@ -554,7 +744,7 @@ class Engine:
             active = (torch.zeros(k, device=dev).index_add_(0, sel_cloud, w)
                       > 0)[:, None]
             noise = None
-            if lp.intra.needs_noise or lp.cross.needs_noise:
+            if self.edge_wire_noise:
                 noise = (draws.edge_noise if draws.edge_noise is not None
                          else self.edge_noise(state.seed, t))
             cloud_aggs, res_edge = self.edge_wire(cloud_aggs, res_edge,
@@ -563,30 +753,33 @@ class Engine:
         cloud_aggs = torch.where((ts_cloud > EPS)[:, None], cloud_aggs,
                                  ref_flat)
 
-        # Eq. 6 cross-cloud combine, then w <- w - eta * g
+        # Eq. 6 cross-cloud combine
         beta = cloud_trust(cloud_aggs, torch.mean(ref_flat, dim=0))
-        update = beta @ cloud_aggs
-        delta = unflatten_like(update * st.server_lr, state.params)
-        params = {kk: state.params[kk] - delta[kk] for kk in state.params}
+        return beta @ cloud_aggs, new_rep, res_edge, new_feat_sep, feat_w
 
-        # float32 wire accounting mirror (FLServer bills float64 on host)
-        intra_b, cross_b = round_bytes_torch(delivered, self.cloud_of,
-                                             self.agg, self.cp, self.ep)
-        cost = (intra_b * st.c_intra + cross_b * st.c_cross) / _GB
-        new_state = RoundState(
-            params=params, rep_ema=new_rep, res_client=res_client,
-            res_edge=res_edge, cum_cost=state.cum_cost + cost,
-            cum_intra_bytes=state.cum_intra_bytes + intra_b,
-            cum_cross_bytes=state.cum_cross_bytes + cross_b,
-            feat_sep=new_feat_sep, seed=state.seed)
-        out = RoundOut(delivered=delivered, rep=new_rep, cost=cost,
-                       intra_bytes=intra_b, cross_bytes=cross_b,
-                       feat_weights=feat_w)
-        return new_state, out
+    def _flat_update(self, u: Tensor, valid: Tensor,
+                     ref_flat: Optional[Tensor]) -> Tensor:
+        """The baseline's (D,) aggregate of the (m, D) wire view."""
+        st = self.static
+        if st.method == "fedavg":
+            if st.p_drop > 0:
+                w = valid.to(u.dtype)
+                return (w @ u) / torch.clamp(torch.sum(w), min=1.0)
+            return robust.fedavg(u)
+        if st.method == "krum":
+            f_mal = int(st.malicious_frac * self.m_total)
+            return robust.krum(u, f_mal,
+                               multi=max(1, self.m_total - f_mal - 2))
+        if st.method == "trimmed_mean":
+            return robust.trimmed_mean(u, trim_frac=st.malicious_frac / 2)
+        if st.method == "median":
+            return robust.coordinate_median(u)
+        # fltrust: zero (dropped) rows get TS = 0, so masked delivery is safe
+        return robust.fltrust(u, torch.mean(ref_flat, dim=0))
 
-    def host_round_accounting(self, delivered_rounds: np.ndarray
-                              ) -> np.ndarray:
+    def host_round_accounting(self, delivered_rounds: np.ndarray,
+                              t0: int = 0) -> np.ndarray:
         """See :func:`host_round_accounting`."""
         return host_round_accounting(self.static, self.d_params,
                                      self.client_payload, self.edge_payload,
-                                     delivered_rounds)
+                                     delivered_rounds, t0=t0)

@@ -1,10 +1,12 @@
 """Server-side orchestration of Algorithm 1: ``FLServer``, a stateful
 wrapper over the round engine (``repro_torch.federated.engine``) with
-float64 host accounting from each round's delivered mask."""
+float64 host accounting from each round's delivered mask. ``method``
+picks Cost-TrustFL or one of the flat baselines; ``scenario`` adds an
+adversary/environment scenario (``repro_torch.scenarios``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import List, Optional, Union
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.fl_types import CloudTopology, RoundMetrics
@@ -13,35 +15,40 @@ from repro_torch.data.pipeline import FederatedData
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated import client as client_mod
 from repro_torch.federated import engine as engine_mod
+from repro_torch.scenarios import Scenario, get_scenario
+
+ScenarioLike = Union[str, Scenario, None]
 
 
-def refuse_scenario(scenario: Any) -> None:
-    if scenario is not None:
-        raise NotImplementedError(
-            "scenarios and their hooks (dropout, malice warmup, price "
-            "schedules) are not ported yet: ROADMAP queue A item 5")
+def resolve_scenario(scenario: ScenarioLike) -> Optional[Scenario]:
+    """A registered scenario's name → the ``Scenario``; else as given."""
+    return get_scenario(scenario) if isinstance(scenario, str) else scenario
 
 
 @dataclass
 class FLServer:
-    """One Cost-TrustFL server on ``device`` (default ``"cuda"``; raises
-    without a GPU unless ``device="cpu"`` is passed)."""
+    """One server on ``device`` (default ``"cuda"``; raises without a GPU
+    unless ``device="cpu"`` is passed). ``scenario`` — a ``Scenario`` or a
+    registered name — has its overrides applied to ``flcfg`` (idempotent)
+    and its ``jit_hooks`` read by the engine."""
     flcfg: FLConfig
     topo: CloudTopology
     data: FederatedData
     method: str = "cost_trustfl"
     seed: int = 0
-    scenario: Optional[Any] = None
+    scenario: ScenarioLike = None
     device: DeviceLike = "cuda"
 
     def __post_init__(self):
-        refuse_scenario(self.scenario)
-        self.device = resolve_device(self.device)
+        self.scenario = resolve_scenario(self.scenario)
+        if self.scenario is not None:
+            self.flcfg = self.scenario.apply(self.flcfg)
         fl = self.flcfg
         shape = tuple(self.data.client_x.shape[2:])
         static = engine_mod.static_from(fl, self.topo, self.method,
-                                        input_shape=shape,
+                                        self.scenario, input_shape=shape,
                                         n_classes=self.data.n_classes)
+        self.device = resolve_device(self.device)
         self._eng = engine_mod.Engine(static, self.device)
         self.d_params = self._eng.d_params
         self.malicious = engine_mod.draw_malicious(fl, self.topo.n_clients,
@@ -61,7 +68,8 @@ class FLServer:
                   draws: Optional[engine_mod.RoundDraws] = None
                   ) -> RoundMetrics:
         """One engine round (own-mode randomness unless ``draws`` is
-        given), then byte-exact float64 accounting on the host."""
+        given), then byte-exact float64 accounting on the host at round
+        t's price."""
         state, out = self._eng.step(self._eng_state, self._eng_data, t,
                                     draws)
         self._eng_state = state
@@ -69,7 +77,7 @@ class FLServer:
         self.rep = ReputationState(ema=state.rep_ema)
         delivered = out.delivered.cpu().numpy()
         cost, intra_b, cross_b = self._eng.host_round_accounting(
-            delivered[None])[0]
+            delivered[None], t0=t)[0]
         self.cum_cost += cost
         self.cum_intra_bytes += intra_b
         self.cum_cross_bytes += cross_b

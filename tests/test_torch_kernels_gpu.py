@@ -293,3 +293,59 @@ def test_cuda_trust_modes_read_device_memory_past_shared_memory(cuda, dtype):
         _close(a, b, _TOL[dtype])
     _close(ops.trust_features(g, refs, gbar, med, w),
            ops.trust_features_plain(g, refs, gbar, med, w), _TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zero_rows", [False, True])
+def test_cuda_fltrust_runs_the_unsegmented_weighted_agg(cuda, zero_rows):
+    """FLTrust's aggregate at the flat path's (30, 545,098): one launch of
+    ``weighted_agg`` without segments, against the plain version on the
+    same card; rows zeroed as dropout zeroes them get TS = 0."""
+    from repro_torch.core import robust
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    g = torch.randn(30, 545_098, generator=gen, device=cuda) * 1e-2
+    ref = g.mean(0) + torch.randn(545_098, generator=gen, device=cuda) * 1e-2
+    if zero_rows:
+        g[[3, 17]] = 0.0
+    norms = torch.linalg.vector_norm(g, dim=1)
+    refn = torch.linalg.vector_norm(ref)
+    ts = torch.relu((g @ ref) / torch.clamp(norms * refn, min=1e-12))
+    before = ops.weighted_agg.launches
+    got = robust.fltrust(g, ref)
+    assert ops.weighted_agg.launches == before + 1
+    _close(got, ops.weighted_agg_plain(g, ts, norms, refn), 1e-5)
+    assert got.shape == (545_098,)
+
+
+@pytest.mark.gpu
+def test_cuda_topk_mask_on_the_flat_client_rows(cuda):
+    """The flat client wire's (30, 545,098) rows, k = 54,510 a row: the
+    mask and its fp16 round trip exact, and the codec's round trip one
+    ``topk_mask`` launch."""
+    from repro_torch.compress import TopKCodec
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    y = torch.randn(30, 545_098, generator=gen, device=cuda) * 1e-3
+    thr = ops.row_threshold(y, 54_510)
+    for f16 in (False, True):
+        assert torch.equal(ops.topk_mask(y, thr, fp16_roundtrip=f16),
+                           ops.topk_mask_plain(y, thr, fp16_roundtrip=f16))
+    before = ops.topk_mask.launches
+    got = TopKCodec(0.1).roundtrip(y)
+    assert ops.topk_mask.launches == before + 1
+    assert torch.equal(got, ops.topk_mask_plain(y, thr, fp16_roundtrip=True))
+    assert int((got != 0).sum(1).min()) >= 54_510
+
+
+@pytest.mark.gpu
+def test_cuda_order_statistic_baselines_match_the_cpu(cuda):
+    """Krum, the trimmed mean and the median are plain PyTorch: the card
+    against the CPU on the same (30, 4099) rows — the median exact (a
+    sort and one midpoint), the others within 1e-5."""
+    from repro_torch.core import robust
+    g = torch.tensor(np.random.default_rng(11).standard_normal(
+        (30, 4099)).astype(np.float32))
+    gc = g.to(cuda)
+    assert torch.equal(robust.coordinate_median(gc).cpu(),
+                       robust.coordinate_median(g))
+    _close(robust.trimmed_mean(gc, 0.15), robust.trimmed_mean(g, 0.15), 1e-5)
+    _close(robust.krum(gc, 9, multi=19), robust.krum(g, 9, multi=19), 1e-5)

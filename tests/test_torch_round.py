@@ -2,7 +2,8 @@
 inputs: the CNN and LocalTrain with carried weights, then three chained
 rounds of ``repro_torch``'s ``Engine.step`` in replay mode against
 ``repro``'s ``CompiledEngine.step`` (README headline config: label_flip,
-top-k 0.1, cross_only), plus the port's entry-point contract.
+top-k 0.1, cross_only) and five at the default ``FLConfig``, plus the
+port's entry-point contract.
 
 Tolerances: masks, bytes and $ exact; reputation and params within 1e-4
 relative L2 (the reference's own cross-engine contract). The edge
@@ -27,8 +28,10 @@ from repro.federated.simulation import make_data as jmake_data
 from repro.federated.simulation import make_topology as jmake_topology
 from _torch_replay import flat as _flat
 from _torch_replay import minibatch_idx as _minibatch_idx
+from _torch_replay import SMALL as _SMALL
 from _torch_replay import reference_draws as _reference_draws
 from _torch_replay import rel as _rel
+from _torch_replay import replay as _replay
 from repro_torch import convert
 from repro_torch.compress.topk import TopKCodec
 from repro_torch.configs.base import FLConfig
@@ -36,6 +39,7 @@ from repro_torch.federated import client as tclient
 from repro_torch.federated import engine as tengine
 from repro_torch.federated.simulation import (make_data, make_topology,
                                               run_simulation)
+from repro_torch.scenarios import Scenario
 
 CPU = torch.device("cpu")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -184,6 +188,20 @@ def test_three_rounds_match_reference(monkeypatch):
         assert _rel(res_t, res_j) <= 1e-3
 
 
+def test_default_config_five_rounds_match_reference():
+    """The north star's main path, the default ``FLConfig``
+    (Cost-TrustFL, no codec, no attack, scalar trust), at the small
+    topology: five replayed rounds, masks, bytes and $ exact, reputation
+    and params within 1e-4 (no wire, so nothing to isolate)."""
+    fl = FLConfig(**_SMALL)
+    assert (fl.aggregator, fl.compressor, fl.attack, fl.trust_features) == (
+        "cost_trustfl", "none", "none", "scalar")
+    drifts = _replay(dict(_SMALL), rounds=5)
+    for t, dr in enumerate(drifts):
+        print(f"default round {t}: {dr}")
+    assert len(drifts) == 5
+
+
 def test_run_simulation_cpu_smoke():
     fl = FLConfig(**_FL)
     r = run_simulation(fl, rounds=2, eval_every=1, device="cpu",
@@ -201,14 +219,29 @@ def test_default_device_without_gpu_raises(monkeypatch):
         run_simulation(fl, rounds=1, data=make_data(fl, **_DATA))
 
 
+def _host_hook(*args):
+    raise AssertionError("a host hook is never called by the engine")
+
+
+# what the reference routes to its host round loop: dropout under an
+# order-statistic aggregator, and host hooks without a jit_hooks twin
 @pytest.mark.parametrize("override", [
-    dict(aggregator="fedavg"), dict(aggregator="krum"),
-    dict(aggregator="trimmed_mean"), dict(aggregator="median"),
-    dict(aggregator="fltrust")])
+    dict(aggregator="krum", scenario="dropout"),
+    dict(aggregator="trimmed_mean", scenario="dropout"),
+    dict(aggregator="median", scenario="dropout"),
+    dict(scenario=Scenario("host_deliver", "environment",
+                           deliver=_host_hook)),
+    dict(scenario=Scenario("host_round_start", "environment",
+                           on_round_start=_host_hook)),
+    dict(aggregator="fedavg",
+         scenario=Scenario("host_malice", "adaptive",
+                           malicious_now=_host_hook))])
 def test_unported_configs_raise(override):
+    override = dict(override)
+    scenario = override.pop("scenario")
     fl = FLConfig(**{**_FL, **override})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        run_simulation(fl, rounds=1, device="cpu",
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 3"):
+        run_simulation(fl, rounds=1, device="cpu", scenario=scenario,
                        data=make_data(fl, **_DATA))
 
 
