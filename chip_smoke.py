@@ -33,8 +33,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. agreement: two rounds of each FL path at a small configuration on the
    card against the same rounds on the CPU (plain versions), from one
    initial state and one set of draws — masks, bytes and $ exact,
-   reputation and params (and, on the defense path, the feature
-   separability) within 1e-4 relative; and the serve path in fp32 at
+   reputation and params (and, on the defense paths, the feature
+   separability) within 1e-4 relative (1e-5 on the host-loop paths
+   without QSGD);
+   and the serve path in fp32 at
    the test configuration (recurrentgemma-2b's layout at d_model 128,
    8 layers, window 64): the prefill of two 96-token prompts on the card
    against the CPU from the same weights — last logits and every cache
@@ -65,8 +67,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``dropout`` scenario (no attack, each selected client fails to
      deliver with probability 0.3); trust_stage, weighted_agg and
      topk_mask once per round; fewer than 30 deliver;
-     params finite; bytes and $ equal the cost model's for each
-     delivered mask; then the test accuracy and rounds/s of each path;
+   * HOST_HEADLINE and HOST_DEFENSE: the headline's and the defense's
+     knobs through the host round loop (``FLServer(engine="host")``:
+     numpy selection, only the delivered clients train, the host twin
+     ``cost_trustfl_aggregate``), with the same launches per round as
+     HEADLINE and DEFENSE;
+   * DROPOUT_MEDIAN: the coordinate median at the headline's wire under
+     ``dropout``, which ``engine="auto"`` routes to the host loop (only
+     it runs dropout under an order statistic); topk_mask once per
+     round, every other kernel never;
+   every FL path: params finite; bytes and $ equal the cost model's for
+   each delivered mask; then the test accuracy and rounds/s of each;
    * SERVE: ``repro_torch.launch.serve.serve`` at recurrentgemma-2b's
      full published widths and all 26 layers, bf16, weights from seed 0,
      4 slots, 8 requests of a 4096-token prompt (twice the window) and
@@ -123,8 +134,9 @@ SOURCES.update(trust_score=f"{CSRC}/trust_stage.cu",
                trust_features=f"{CSRC}/trust_stage.cu")
 # the FL paths on which the fused trust_stage launch computes each
 # function (trust_features only under trust_features="multi")
-FUSED_INTO_STAGE = {"trust_score": ("headline", "defense", "dropout"),
-                    "trust_features": ("defense",)}
+FUSED_INTO_STAGE = {"trust_score": ("headline", "defense", "dropout",
+                                    "host_headline", "host_defense"),
+                    "trust_features": ("defense", "host_defense")}
 # the test suite's small topology at the same headline knobs
 SMALL = dict(n_clouds=3, clients_per_cloud=4, clients_per_round=6,
              local_epochs=1, local_batch=8, ref_samples=16)
@@ -145,23 +157,38 @@ def _per_round(**launches):
     return out
 
 
-# path -> (FLConfig knobs, registered scenario or None, launches per round)
+# path -> (FLConfig knobs, registered scenario or None, FLServer's
+# ``engine=``, launches per round). "auto" is given only where it routes
+# to the host round loop, and the path checks that it did
 PATHS = {
-    "headline": (HEADLINE, None,
+    "headline": (HEADLINE, None, "jit",
                  _per_round(trust_stage=1, weighted_agg=1, topk_mask=1)),
-    "defense": (DEFENSE, None,
+    "defense": (DEFENSE, None, "jit",
                 _per_round(trust_stage=1, weighted_agg=1,
                            stochastic_quantize=2)),
     # the paper's Fig. 8 baseline arm at the headline's knobs: each
     # client's one uplink, top-k across clouds (one topk_mask launch over
     # the selected rows); FLTrust's aggregate is one weighted_agg launch
-    **{m: (dict(HEADLINE, aggregator=m), None,
+    **{m: (dict(HEADLINE, aggregator=m), None, "jit",
            _per_round(topk_mask=1, weighted_agg=int(m == "fltrust")))
        for m in FLAT},
     # Cost-TrustFL at the headline's wire under the registered dropout
     # scenario (no attack, p_drop 0.3): the trust stage over rows with w = 0
-    "dropout": (TOPK_WIRE, "dropout",
+    "dropout": (TOPK_WIRE, "dropout", "jit",
                 _per_round(trust_stage=1, weighted_agg=1, topk_mask=1)),
+    # the host round loop: the host twin's one trust_stage and one
+    # segmented weighted_agg a round, the edge wire (and on defense the
+    # client wire) through the same codecs
+    "host_headline": (HEADLINE, None, "host",
+                      _per_round(trust_stage=1, weighted_agg=1,
+                                 topk_mask=1)),
+    "host_defense": (DEFENSE, None, "host",
+                     _per_round(trust_stage=1, weighted_agg=1,
+                                stochastic_quantize=2)),
+    # dropout under an order statistic: only the host loop runs it; the
+    # median of the delivered rows, the flat wire top-k across clouds
+    "dropout_median": (dict(TOPK_WIRE, aggregator="median"), "dropout",
+                       "auto", _per_round(topk_mask=1)),
 }
 # the serve path: recurrentgemma-2b at full width, as the launcher runs it
 SERVE = dict(arch="recurrentgemma-2b", batch=4, requests=8, prompt_len=4096,
@@ -654,6 +681,16 @@ def state_to(state, dev):
            if f not in ("params", "seed")})
 
 
+def rel_err(torch, a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp(min=1e-30))
+
+
+def flat_params(torch, params):
+    return torch.cat([params[k].reshape(-1).cpu() for k in sorted(params)])
+
+
 def agreement_phase(torch, dev, path: str):
     """Two small rounds of ``path`` on the card (kernels) against the CPU
     (plain versions) from one state and one set of draws (the CPU's,
@@ -665,7 +702,9 @@ def agreement_phase(torch, dev, path: str):
 
     from repro_torch.scenarios import get_scenario
 
-    knobs, scenario, _ = PATHS[path]
+    knobs, scenario, engine, _ = PATHS[path]
+    if engine != "jit":
+        return host_agreement_phase(torch, dev, path)
     scenario = get_scenario(scenario) if scenario else None
     fl = FLConfig(**SMALL, **knobs)
     if scenario is not None:
@@ -679,11 +718,6 @@ def agreement_phase(torch, dev, path: str):
            for d in engs}
     s_cpu = engs[cpu].init_state(0)
     states = {cpu: s_cpu, dev: state_to(s_cpu, dev)}
-
-    def rel(a, b):
-        a, b = a.double().cpu(), b.double().cpu()
-        return float(torch.linalg.vector_norm(a - b)
-                     / torch.linalg.vector_norm(b).clamp(min=1e-30))
 
     worst = {"rep": 0.0, "params": 0.0, "feat_sep": 0.0}
     for t in range(2):
@@ -699,17 +733,75 @@ def agreement_phase(torch, dev, path: str):
             engs[cpu].host_round_accounting(mask_c[None], t0=t),
             engs[dev].host_round_accounting(mask_g[None], t0=t)),
             f"{path} round {t}: bytes/$ differ")
-        worst["rep"] = max(worst["rep"], rel(states[dev].rep_ema,
-                                             states[cpu].rep_ema))
-        worst["feat_sep"] = max(worst["feat_sep"], rel(
-            states[dev].feat_sep, states[cpu].feat_sep))
-        flat = [torch.cat([s.params[k].reshape(-1).cpu()
-                           for k in sorted(s.params)])
-                for s in (states[dev], states[cpu])]
-        worst["params"] = max(worst["params"], rel(*flat))
+        worst["rep"] = max(worst["rep"], rel_err(torch, states[dev].rep_ema,
+                                                 states[cpu].rep_ema))
+        worst["feat_sep"] = max(worst["feat_sep"], rel_err(
+            torch, states[dev].feat_sep, states[cpu].feat_sep))
+        worst["params"] = max(worst["params"], rel_err(
+            torch, flat_params(torch, states[dev].params),
+            flat_params(torch, states[cpu].params)))
     check(max(worst.values()) <= 1e-4,
           f"{path}: card vs CPU drift {worst} > 1e-4")
     return worst
+
+
+def host_agreement_phase(torch, dev, path: str):
+    """:func:`agreement_phase` of a host-loop path: two ``FLServer``s of
+    the path's ``engine=`` (both must resolve to the host loop), the
+    card's given the CPU's initial params, each round run on the CPU
+    server's draws; the selection and delivery masks come from the
+    round's numpy generator on both. Within 1e-5 (1e-4 under QSGD)."""
+    import numpy as np
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.federated import FLServer, make_data, make_topology
+
+    knobs, scenario, engine, _ = PATHS[path]
+    fl = FLConfig(**SMALL, **knobs)
+    data = make_data(fl, n_samples=600, samples_per_client=16)
+    host, card = (FLServer(fl, make_topology(fl), data, method=fl.aggregator,
+                           seed=0, scenario=scenario, device=d,
+                           engine=engine)
+                  for d in (torch.device("cpu"), dev))
+    check(host.engine_resolved == card.engine_resolved == "host",
+          f"{path}: engine={engine!r} did not route to the host loop")
+    card.params = {k: v.to(dev) for k, v in host.params.items()}
+    worst = {"rep": 0.0, "params": 0.0, "feat_sep": 0.0}
+    for t in range(2):
+        draws = host.draws(t, full_noise=True)
+        mh, mc = host.run_round(t, draws), card.run_round(t, draws)
+        check(np.array_equal(mh.selected, mc.selected),
+              f"{path} round {t}: masks differ")
+        check((mh.cost, mh.extra["intra_bytes"], mh.extra["cross_bytes"])
+              == (mc.cost, mc.extra["intra_bytes"], mc.extra["cross_bytes"]),
+              f"{path} round {t}: bytes/$ differ")
+        worst["rep"] = max(worst["rep"], rel_err(torch, card.rep.ema,
+                                                 host.rep.ema))
+        if host._feat_sep is not None:
+            worst["feat_sep"] = max(worst["feat_sep"], rel_err(
+                torch, card._feat_sep, host._feat_sep))
+        worst["params"] = max(worst["params"], rel_err(
+            torch, flat_params(torch, card.params),
+            flat_params(torch, host.params)))
+    # QSGD: an entry whose |v| + u lies within rounding of a level takes
+    # the other level on one device (ROADMAP.md C.4), a jump of scale/L,
+    # so a QSGD path is held at 1e-4, as the engine's paths are
+    tol = 1e-4 if knobs.get("compressor") == "qsgd" else 1e-5
+    check(max(worst.values()) <= tol,
+          f"{path}: card vs CPU drift {worst} > {tol}")
+    return worst
+
+
+def server_tensors(server):
+    """{name: tensor} of what a round mutates, under either engine."""
+    state = server.round_state
+    if state is not None:
+        return {name: getattr(state, name) for name in
+                ("rep_ema", "res_client", "res_edge", "feat_sep")}
+    out = {"rep_ema": server.rep.ema}
+    for name in ("_res_client", "_res_edge", "_feat_sep"):
+        if getattr(server, name) is not None:
+            out[name] = getattr(server, name)
+    return out
 
 
 def _serve_test_model():
@@ -755,11 +847,6 @@ def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
         else:   # a copy: decode updates attention caches in place
             yield prefix, tree.detach().cpu().clone()
 
-    def rel(a, b):
-        a, b = a.double().cpu(), b.double().cpu()
-        return float(torch.linalg.vector_norm(a - b)
-                     / torch.linalg.vector_norm(b).clamp(min=1e-30))
-
     def run(d, params):
         before = ops.linear_scan.launches
         logits, cache = model.prefill(params, {"tokens": tokens.to(d)},
@@ -781,19 +868,22 @@ def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
     check(card["scans"] == n_r and host["scans"] == 0,
           f"serve agreement: {card['scans']} scan launches on the card "
           f"(expected {n_r}), {host['scans']} on the CPU")
-    worst = {"prefill_logits": rel(card["prefill"], host["prefill"]),
+    worst = {"prefill_logits": rel_err(torch, card["prefill"],
+                                       host["prefill"]),
              "cache": 0.0, "decode_logits": 0.0}
     for name, want in host["cache"].items():
         got = card["cache"][name]
         if want.is_floating_point():
-            worst["cache"] = max(worst["cache"], rel(got, want))
+            worst["cache"] = max(worst["cache"],
+                                 rel_err(torch, got, want))
         else:
             check(torch.equal(got, want), f"serve agreement: {name} differs")
     for a, b, ta, tb in zip(card["logits"], host["logits"], card["tokens"],
                             host["tokens"]):
         check(torch.equal(ta, tb), f"serve agreement: greedy tokens "
               f"{ta.tolist()} on the card, {tb.tolist()} on the CPU")
-        worst["decode_logits"] = max(worst["decode_logits"], rel(a, b))
+        worst["decode_logits"] = max(worst["decode_logits"],
+                                      rel_err(torch, a, b))
     check(max(worst.values()) <= 1e-4,
           f"serve: card vs CPU drift {worst} > 1e-4")
     worst["tokens"] = np.stack([x.numpy() for x in card["tokens"]],
@@ -856,7 +946,7 @@ def main_path_phase(torch, ops, dev, path: str):
     from repro_torch.federated import FLServer, make_data, make_topology
     from repro_torch.scenarios import get_scenario
 
-    knobs, scenario, per_round = PATHS[path]
+    knobs, scenario, engine, per_round = PATHS[path]
     fl = FLConfig(**knobs)
     if scenario is not None:
         fl = get_scenario(scenario).apply(fl)
@@ -864,9 +954,11 @@ def main_path_phase(torch, ops, dev, path: str):
     t0 = time.perf_counter()
     data = make_data(fl)
     server = FLServer(fl, topo, data, method=fl.aggregator, seed=0,
-                      scenario=scenario, device=dev)
+                      scenario=scenario, device=dev, engine=engine)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    check(server.engine_resolved == ("jit" if engine == "jit" else "host"),
+          f"{path}: engine={engine!r} resolved to {server.engine_resolved}")
     d = server.d_params
     check(d == 545_098, f"D = {d}, expected the paper CNN's 545,098")
     cm = CostModel(fl.c_intra, fl.c_cross)
@@ -915,13 +1007,12 @@ def main_path_phase(torch, ops, dev, path: str):
     for name, p in server.params.items():
         check(bool(torch.isfinite(p).all()),
               f"{path}: param {name} not finite")
-    state = server.round_state
-    for name in ("rep_ema", "res_client", "res_edge", "feat_sep"):
-        check(bool(torch.isfinite(getattr(state, name)).all()),
-              f"{path}: {name} not finite")
+    for name, x in server_tensors(server).items():
+        check(bool(torch.isfinite(x).all()), f"{path}: {name} not finite")
     acc = server.evaluate()
     check(0.0 <= acc <= 1.0, f"{path}: accuracy {acc}")
-    return counts, dict(setup_s=setup_s, round_s=round_s,
+    return counts, dict(engine=server.engine_resolved, setup_s=setup_s,
+                        round_s=round_s,
                         rounds_per_s=ROUNDS / sum(round_s),
                         steady_rounds_per_s=(ROUNDS - 1) / sum(round_s[1:])
                         if ROUNDS > 1 else None,
@@ -1006,11 +1097,11 @@ def profile_phase(torch, dev, out, path: str, rounds: int = 2):
     from repro_torch.configs.base import FLConfig
     from repro_torch.federated import FLServer, make_data, make_topology
 
-    knobs, scenario, _ = PATHS[path]
+    knobs, scenario, engine, _ = PATHS[path]
     fl = FLConfig(**knobs)
     server = FLServer(fl, make_topology(fl), make_data(fl),
                       method=fl.aggregator, seed=0, scenario=scenario,
-                      device=dev)
+                      device=dev, engine=engine)
     for t in range(2):
         server.run_round(t)
 

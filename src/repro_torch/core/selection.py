@@ -2,10 +2,13 @@
 
 S = argmax_{|S|<=m} Σ_{i∈S} r̂_i / c_i^λ — separable, so the exact optimum
 is the top-m of the ratio, here with the per-cloud exploration quota and
-the multiplicative tie-break noise of the reference's jittable variant.
-The noise is an input: the caller draws it (own stream) or replays the
-reference's draw, because ``torch.topk`` does not promise an order among
-exact ties and round 0 has all-equal reputations.
+the multiplicative tie-break noise. ``select_clients`` is the tensor form
+of the reference's jittable variant, which the round engine runs; its
+noise is an input (the caller draws it or replays the reference's draw,
+because ``torch.topk`` does not promise an order among exact ties and
+round 0 has all-equal reputations). ``select_clients_host`` is the numpy
+form the host round loop runs, drawing its noise from the round's
+``np.random.Generator``.
 """
 from __future__ import annotations
 
@@ -66,4 +69,32 @@ def select_clients(reputation: torch.Tensor, unit_costs: torch.Tensor,
     if remaining > 0:
         masked = torch.where(chosen, neg_inf, ratio)
         chosen[torch.topk(masked, remaining).indices] = True
+    return chosen
+
+
+def select_clients_host(reputation: np.ndarray, unit_costs: np.ndarray,
+                        m: int, per_cloud_min: int = 0,
+                        cloud_of: Optional[np.ndarray] = None,
+                        cost_lambda: float = 1.0,
+                        rng: Optional[np.random.Generator] = None
+                        ) -> np.ndarray:
+    """Boolean (N,) mask of the selected set, in numpy: a copy of the
+    reference's ``repro.core.selection.select_clients``. ``rng`` draws
+    ``standard_normal(N)`` for the (1 + 1e-4·noise) tie-break; with a
+    float32 ``reputation`` over float64 ``unit_costs`` the ratio is
+    float64, as in the reference."""
+    ratio = np.asarray(reputation) / np.asarray(unit_costs) ** cost_lambda
+    if rng is not None:
+        ratio = ratio * (1.0 + 1e-4 * rng.standard_normal(ratio.shape))
+    n = ratio.shape[0]
+    m = min(m, n)
+    chosen = np.zeros(n, bool)
+    if per_cloud_min and cloud_of is not None:
+        for k in np.unique(cloud_of):
+            idx = np.nonzero(cloud_of == k)[0]
+            chosen[idx[np.argsort(-ratio[idx])[:per_cloud_min]]] = True
+    remaining = m - chosen.sum()
+    if remaining > 0:
+        order = np.argsort(-np.where(chosen, -np.inf, ratio))
+        chosen[order[:remaining]] = True
     return chosen

@@ -37,6 +37,12 @@ SENDER (client id, or cloud on the edge wire), drawn after selection
 for the selected senders only, so a client's noise never depends on its
 row position. Replay mode takes them from the caller, e.g. re-derived
 from the reference's key schedule.
+
+The host round loop (``FLServer(engine="host")``) runs what
+:func:`supports` leaves out — dropout under an order statistic, host
+hooks without ``jit_hooks`` — with an :class:`Engine` of its config
+without the scenario for its wires, payloads and own-mode streams;
+:func:`resolve_engine` routes between the two.
 """
 from __future__ import annotations
 
@@ -202,34 +208,73 @@ def hooks_of(scenario: Optional[Scenario]) -> JitHooks:
     return scenario.jit_hooks
 
 
+def supports(flcfg: FLConfig, method: str,
+             scenario: Optional[Scenario] = None) -> bool:
+    """Can the round engine run this (config, method, scenario)? Not a
+    scenario with host hooks and no ``jit_hooks``, nor dropout under an
+    order-statistic aggregator (it would read the zeroed rows as
+    clients): those run in the host round loop."""
+    if method not in METHODS or flcfg.attack not in UPDATE_ATTACKS:
+        return False
+    if scenario is not None and not scenario.jittable:
+        return False
+    if hooks_of(scenario).p_drop > 0 and method not in MASKED_DELIVERY_OK:
+        return False
+    return True
+
+
+def resolve_engine(engine: str, flcfg: FLConfig, topo: CloudTopology,
+                   method: str, scenario: Optional[Scenario] = None) -> str:
+    """Route a (config, method, scenario) onto a round loop: ``"jit"``
+    (the round engine) or ``"host"`` (the host round loop), as the
+    reference routes on one device. ``"auto"`` takes the engine when
+    :func:`supports` says so, else the host loop; ``"jit"`` on a
+    combination only the host loop runs raises ``ValueError``;
+    ``"shard"`` (the reference's mesh-sharded engine) raises
+    ``NotImplementedError``. ``topo`` is the reference's argument for
+    its sharded branch; no route here reads it."""
+    if engine == "host":
+        return "host"
+    if engine == "shard":
+        raise NotImplementedError(
+            "engine='shard': the mesh-sharded round engine is not ported "
+            "yet (ROADMAP queue A item 6)")
+    if engine == "jit":
+        if not supports(flcfg, method, scenario):
+            raise ValueError(
+                f"engine='jit' but method={method!r} / "
+                f"scenario={getattr(scenario, 'name', None)!r} "
+                "is not jittable")
+        return "jit"
+    if engine != "auto":
+        raise ValueError(f"unknown engine {engine!r}; expected "
+                         "'auto' | 'shard' | 'jit' | 'host'")
+    return "jit" if supports(flcfg, method, scenario) else "host"
+
+
 def static_from(flcfg: FLConfig, topo: CloudTopology,
                 method: str = "cost_trustfl",
                 scenario: Optional[Scenario] = None,
                 input_shape: Tuple[int, ...] = (32, 32, 3),
                 n_classes: int = 10) -> EngineStatic:
-    """Freeze (FLConfig, topology, scenario). What the reference routes to
-    its host loop — a scenario with host hooks and no ``jit_hooks``, and
-    dropout under an order-statistic aggregator — raises
-    ``NotImplementedError`` naming the slice it waits for (ROADMAP queue
-    A item 3)."""
+    """Freeze (FLConfig, topology, scenario). Raises ``ValueError`` for
+    what the engine cannot run (see :func:`supports`; route with
+    :func:`resolve_engine` first)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; known: {METHODS}")
-    if scenario is not None and not scenario.jittable:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} has host hooks and no jit_hooks: "
-            "the host round loop is not ported yet (ROADMAP queue A item 3)")
-    h = hooks_of(scenario)
-    if h.p_drop > 0 and method not in MASKED_DELIVERY_OK:
-        raise NotImplementedError(
-            f"dropout (p_drop={h.p_drop}) with method={method!r} runs in the "
-            "reference's host round loop, not ported yet (ROADMAP queue A "
-            "item 3)")
     if flcfg.attack not in UPDATE_ATTACKS:
         raise ValueError(f"unknown attack {flcfg.attack!r}; known: "
                          f"{sorted(UPDATE_ATTACKS)}")
     if flcfg.trust_features not in ("scalar", "multi"):
         raise ValueError(f"unknown trust_features {flcfg.trust_features!r}; "
                          "use 'scalar' or 'multi'")
+    if not supports(flcfg, method, scenario):
+        raise ValueError(
+            f"the round engine cannot run method={method!r} "
+            f"scenario={getattr(scenario, 'name', None)!r} (host hooks "
+            "without jit_hooks, or dropout under an order-statistic "
+            "aggregator): use the host round loop, engine='host'")
+    h = hooks_of(scenario)
     # resolves (and validates) the compressor and link policy
     build_link_policy(flcfg.compressor, ratio=flcfg.compress_ratio,
                       levels=flcfg.qsgd_levels, link_policy=flcfg.link_policy)
@@ -439,17 +484,23 @@ class Engine:
                                       self.quota, self.cloud_of_np)
 
     # -- state and randomness ------------------------------------------------
+    def init_params(self, seed: int) -> Dict[str, Tensor]:
+        """The CNN's own init from ``seed`` on this device (sorted keys)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        params = client_mod.cnn_init(gen, self.static.input_shape,
+                                     self.static.n_classes,
+                                     device=self.device)
+        return {k: params[k] for k in sorted(params)}
+
     def init_state(self, seed: int,
                    params: Optional[Dict[str, Tensor]] = None) -> RoundState:
-        """Round-zero state: ``params`` (default: own init from ``seed``),
+        """Round-zero state: ``params`` (default: :meth:`init_params`),
         uniform reputation, zero residuals on the lossy wires, zero
         feature separability under ``multi``."""
         dev = self.device
         if params is None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(seed)
-            params = client_mod.cnn_init(gen, self.static.input_shape,
-                                         self.static.n_classes, device=dev)
+            params = self.init_params(seed)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         empty = torch.zeros(0, device=dev)
         return RoundState(
@@ -574,22 +625,18 @@ class Engine:
 
     # -- the wires -----------------------------------------------------------
     def client_wire(self, flat_sel: Tensor, res_client: Tensor,
-                    sel_idx: Tensor, valid: Tensor, draws: RoundDraws,
-                    seed: int, t: int) -> Tensor:
+                    sel_idx: Tensor, valid: Tensor,
+                    noise: Optional[Tensor]) -> Tensor:
         """Round-trip the selected rows through their uplink codec with
         error feedback (the selected senders' rows of ``res_client`` are
         updated in place); rows that did not deliver pass through and
-        keep their residual. Hierarchical: every hop takes the intra
-        codec. Flat: the intra codec on the aggregator's cloud, the cross
-        codec elsewhere; under ``all`` (one codec object) that is one
-        round trip over every delivered row (one launch), each row's QSGD
-        noise from its own sub-fold."""
+        keep their residual. ``noise``: the senders' (m, D) QSGD rows
+        where the wire reads noise (:meth:`client_noise`). Hierarchical:
+        every hop takes the intra codec. Flat: the intra codec on the
+        aggregator's cloud, the cross codec elsewhere; under ``all`` (one
+        codec object) that is one round trip over every delivered row
+        (one launch), each row's QSGD noise from its own sub-fold."""
         lp = self.link_policy
-        noise = None
-        if self.client_wire_noise:
-            noise = (draws.client_noise[sel_idx]
-                     if draws.client_noise is not None
-                     else self.client_noise(seed, t, sel_idx.tolist()))
         cur = res_client[sel_idx]
         if self.hier or lp.intra is lp.cross:
             flat_sel, cur = ef_step_masked(lp.intra, flat_sel, cur, valid,
@@ -670,8 +717,14 @@ class Engine:
 
         res_client = state.res_client
         if self.client_wire_active:
+            noise = None
+            if self.client_wire_noise:
+                noise = (draws.client_noise[sel_idx]
+                         if draws.client_noise is not None
+                         else self.client_noise(state.seed, t,
+                                                sel_idx.tolist()))
             flat_sel = self.client_wire(flat_sel, res_client, sel_idx, valid,
-                                        draws, state.seed, t)
+                                        noise)
         # what did not deliver aggregates as a zero row
         if st.p_drop > 0:
             flat_sel = torch.where(valid[:, None], flat_sel, 0.0)

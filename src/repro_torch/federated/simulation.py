@@ -52,12 +52,14 @@ def run_simulation(flcfg: FLConfig, *, method: Optional[str] = None,
                    scenario: ScenarioLike = None, dataset: str = "cifar10",
                    rounds: Optional[int] = None, eval_every: int = 5,
                    seed: int = 0, data: Optional[FederatedData] = None,
-                   device: DeviceLike = "cuda") -> SimResult:
+                   device: DeviceLike = "cuda",
+                   engine: str = "auto") -> SimResult:
     """Run one (method, scenario) simulation on ``device`` (default
     ``"cuda"``; raises without a GPU unless ``device="cpu"`` is passed).
     ``scenario`` — a ``repro_torch.scenarios`` registry name or
     ``Scenario`` — has its FLConfig overrides applied first. ``method``
-    defaults to ``flcfg.aggregator``."""
+    defaults to ``flcfg.aggregator``. ``engine`` is forwarded to
+    ``FLServer`` (the round loop: ``"auto"``, ``"jit"``, ``"host"``)."""
     scenario = resolve_scenario(scenario)
     if scenario is not None:
         flcfg = scenario.apply(flcfg)
@@ -67,7 +69,7 @@ def run_simulation(flcfg: FLConfig, *, method: Optional[str] = None,
     topo = make_topology(flcfg)
     data = data if data is not None else make_data(flcfg, dataset, seed)
     server = FLServer(flcfg, topo, data, method=method, seed=seed,
-                      scenario=scenario, device=device)
+                      scenario=scenario, device=device, engine=engine)
     accs, ticks = [], []
     for t in range(rounds):
         server.run_round(t)
@@ -89,17 +91,18 @@ def run_simulation(flcfg: FLConfig, *, method: Optional[str] = None,
 def compare_methods(flcfg: FLConfig, methods: List[str], *,
                     scenario: ScenarioLike = None,
                     dataset: str = "cifar10", rounds: int = 30,
-                    seed: int = 0,
-                    device: DeviceLike = "cuda") -> Dict[str, SimResult]:
+                    seed: int = 0, device: DeviceLike = "cuda",
+                    engine: str = "auto") -> Dict[str, SimResult]:
     """Run every method on ONE dataset and scenario, so comparisons are
     like for like (one data partition, one set of scenario hooks). The
     scenario's overrides are applied before the data are made, since
-    they may change the partition."""
+    they may change the partition. ``engine`` is forwarded to every
+    server."""
     scenario = resolve_scenario(scenario)
     if scenario is not None:
         flcfg = scenario.apply(flcfg)
     data = make_data(flcfg, dataset, seed)
     return {m: run_simulation(flcfg, method=m, scenario=scenario,
                               dataset=dataset, rounds=rounds, seed=seed,
-                              data=data, device=device)
+                              data=data, device=device, engine=engine)
             for m in methods}

@@ -1,9 +1,11 @@
 """Adaptive update-level adversaries (out-of-paper extensions). Each
 scenario names an attack of ``repro_torch.core.attacks.UPDATE_ATTACKS``;
-the sleeper declares its warmup as ``JitHooks(malice_warmup=2)``."""
+the sleeper carries its warmup as a host hook and as
+``JitHooks(malice_warmup=2)``."""
 from __future__ import annotations
 
 from repro_torch.scenarios.base import JitHooks, Scenario, register_scenario
+from repro_torch.scenarios.environment import make_intermittent_hook
 
 ALIE = register_scenario(Scenario(
     name="alie", level="adaptive",
@@ -26,6 +28,7 @@ ALIE_SLEEPER = register_scenario(Scenario(
     description="honest for 2 rounds to farm reputation, then ALIE",
     overrides=dict(attack="alie", malicious_frac=0.3, attack_z=1.0),
     knobs=dict(warmup=2, z=1.0),
+    malicious_now=make_intermittent_hook(2),
     jit_hooks=JitHooks(malice_warmup=2),
 ))
 

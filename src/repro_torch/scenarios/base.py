@@ -3,18 +3,30 @@
 environment into one named, registrable unit that ``FLServer``,
 ``run_simulation`` and ``compare_methods`` share.
 
-The environment enters the round engine as data, a :class:`JitHooks`:
-a dropout probability, an active-malice warmup round and a per-round
-``c_cross`` multiplier schedule. A scenario may also carry host hooks
-(``on_round_start``, ``deliver``, ``malicious_now``), called by the
-reference's host round loop; the port has no host loop yet, so a
-scenario whose host hooks have no ``jit_hooks`` equivalent is refused
-(``jittable`` is False) until ROADMAP queue A item 3.
+Host hooks (all optional, duck-typed against ``FLServer``), which the
+host round loop calls through the dispatch methods below:
+
+* ``on_round_start(server, t, rng)`` — environment mutation before
+  selection, e.g. dynamic egress pricing swaps ``server.cost_model`` and
+  ``server.unit_costs``;
+* ``deliver(server, t, rng, sel) -> sel`` — post-selection delivery
+  mask, e.g. dropout (dropped clients neither train nor pay bytes);
+* ``malicious_now(server, t) -> (N,) bool`` — per-round active-malice
+  mask, e.g. sleepers honest for a warmup window.
+
+Hooks must be deterministic given ``(server.seed, t, rng)``. The round
+engine cannot call them, so a scenario that wants it declares its
+environment as data, a :class:`JitHooks`: a dropout probability, an
+active-malice warmup round and a per-round ``c_cross`` multiplier
+schedule. A scenario with host hooks and no ``jit_hooks`` runs in the
+host loop only (``jittable`` is False).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.configs.base import FLConfig
 
@@ -45,8 +57,8 @@ class Scenario:
 
     ``overrides`` are applied to the caller's ``FLConfig``; ``knobs``
     documents the scenario's parameters; ``jit_hooks`` is what the round
-    engine reads. The host-hook fields are callables of the reference's
-    host loop (``repro/scenarios/base.py``)."""
+    engine reads; the host-hook fields are what the host round loop
+    calls."""
     name: str
     level: str                                   # one of LEVELS
     description: str = ""
@@ -73,6 +85,21 @@ class Scenario:
     def apply(self, flcfg: FLConfig) -> FLConfig:
         """FLConfig with this scenario's overrides applied (idempotent)."""
         return replace(flcfg, **self.overrides) if self.overrides else flcfg
+
+    # -- hook dispatch (no-ops when the hook is unset) ------------------------
+    def round_start(self, server, t: int, rng: np.random.Generator) -> None:
+        if self.on_round_start is not None:
+            self.on_round_start(server, t, rng)
+
+    def delivered(self, server, t: int, rng: np.random.Generator,
+                  sel: np.ndarray) -> np.ndarray:
+        return sel if self.deliver is None else self.deliver(server, t, rng,
+                                                             sel)
+
+    def active_malicious(self, server, t: int) -> np.ndarray:
+        if self.malicious_now is None:
+            return server.malicious
+        return self.malicious_now(server, t)
 
 
 _SCENARIOS: Dict[str, Scenario] = {}

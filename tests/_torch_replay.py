@@ -2,8 +2,11 @@
 engine's per-round randomness re-derived from its key schedule and
 handed to ``repro_torch``'s ``Engine.step`` in replay mode, the
 comparison measures, and ``replay``, which chains replayed rounds of
-one configuration against ``CompiledEngine.step``. Not a test module
-(leading underscore)."""
+one configuration against ``CompiledEngine.step``; likewise the
+reference host loop's draws (``host_reference_draws``) and
+``host_replay``, which chains rounds of the port's host loop against the
+reference's ``FLServer(engine="host")``. Not a test module (leading
+underscore)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,13 +17,17 @@ from repro.compress.qsgd import QSGDCodec as JQSGDCodec
 from repro.compress.topk import TopKCodec as JTopKCodec
 from repro.configs.base import FLConfig as JFLConfig
 from repro.federated import engine as jengine
+from repro.federated.server import FLServer as JFLServer
 from repro.federated.simulation import make_data as jmake_data
 from repro.federated.simulation import make_topology as jmake_topology
 from repro_torch import convert
 from repro_torch import scenarios as tscenarios
 from repro_torch.compress import QSGDCodec, TopKCodec
 from repro_torch.configs.base import FLConfig
+from repro_torch.federated import client as tclient
 from repro_torch.federated import engine as tengine
+from repro_torch.federated.server import FLServer as TFLServer
+from repro_torch.federated.server import HostDraws
 from repro_torch.federated.simulation import make_data as tmake_data
 from repro_torch.federated.simulation import make_topology as tmake_topology
 from repro_torch.kernels import ops
@@ -94,6 +101,34 @@ def reference_draws(seed: int, t: int, n: int, steps: int, batch: int,
                               edge_noise=edge_noise,
                               perm=torch.tensor(np.asarray(perm)),
                               drop_u=torch.tensor(np.asarray(drop_u)))
+
+
+def host_reference_draws(seed: int, t: int, n: int, steps: int, batch: int,
+                         n_samples: int, ref_steps: int, n_ref: int, *,
+                         d: int = 0, k: int = 0, edge_fold: int = 3,
+                         client_sub=None, attack_shape=None) -> HostDraws:
+    """The reference host loop's round-t tensor randomness
+    (``repro/federated/server.py:_run_round_host``). Its key
+    ``PRNGKey(seed·7919 + t)`` is the engine's round key, so its draws are
+    ``reference_draws``' own: each delivered client's minibatches from
+    ``split(key, N)[client]``, the clouds' one shared reference schedule
+    from ``key`` itself, the client wire's QSGD noise from ``fold_in(key,
+    211)`` per sender (with ``client_sub``: sub-fold 0 intra / 1 cross,
+    the flat path's two passes) and the edge wire's from ``fold_in(key,
+    223)``, then ``edge_fold``, per cloud. Selection and delivery come
+    from the round's numpy generator in either loop. With
+    ``attack_shape`` (delivered rows, D): the gaussian attack's
+    ``normal(key, attack_shape)``."""
+    r = reference_draws(seed, t, n, steps, batch, n_samples, ref_steps,
+                        n_ref, d=d, k=k, edge_fold=edge_fold,
+                        client_sub=client_sub)
+    attack = None
+    if attack_shape is not None:
+        key = jax.random.PRNGKey(seed * 7919 + t)
+        attack = torch.tensor(np.asarray(jax.random.normal(
+            key, tuple(attack_shape), jnp.float32)))
+    return HostDraws(r.client_idx, r.ref_idx, r.client_noise, r.edge_noise,
+                     attack)
 
 
 # ---------------------------------------------------------------------------
@@ -292,5 +327,113 @@ def replay(cfg: dict, method: str = "cost_trustfl", scenario=None,
                 drift[name] = off
                 assert diverged or off <= 1e-4, (t, name, off)
                 assert rel(a, b) <= 5e-2, (t, name)
+        drifts.append(drift)
+    return drifts
+
+
+# ---------------------------------------------------------------------------
+# replayed rounds: the port's host loop against the reference's
+
+def host_replay(cfg: dict, method: str = "cost_trustfl", scenario=None,
+                rounds: int = 3, seed: int = 0, monkeypatch=None):
+    """``rounds`` chained rounds of the reference's host loop
+    (``FLServer(engine="host")``) and of the port's
+    (``FLServer(engine="host", device="cpu")``) replaying its draws
+    (``host_reference_draws``), from the reference server's initial
+    params, at ``cfg`` with ``scenario`` (a registered name, or a
+    (reference, port) pair of ``Scenario`` objects) and its overrides.
+    Each round: the delivered masks, float64 bytes and $ exact;
+    reputation, params and feature separability within 1e-4 relative.
+    The EF residuals are held to 5e-2: an entry of a wire input within
+    rounding of an fp16 boundary, a top-k threshold or a QSGD level
+    takes the other value in one run (``ROADMAP.md`` C.3–C.4), which
+    ``replay`` isolates with its spy.
+
+    With ``monkeypatch`` given, both LocalTrains of the delivered clients
+    are spied: a client update more than 1e-4 apart (``rows_apart``: a
+    ReLU or max-pool input within rounding of its switch point routes an
+    O(1) gradient through one run only, ``ROADMAP.md`` C.5) means the
+    runs train from other inputs from then on, and the 1e-4 contract
+    gives way to 5e-2 from the round after. Returns the per-round
+    drifts."""
+    jscen = tscen = None
+    if isinstance(scenario, str):
+        jscen = jscenarios.get_scenario(scenario)
+        tscen = tscenarios.get_scenario(scenario)
+    elif scenario is not None:
+        jscen, tscen = scenario
+    jfl, tfl = JFLConfig(**cfg), FLConfig(**cfg)
+    if jscen is not None:
+        jfl, tfl = jscen.apply(jfl), tscen.apply(tfl)
+    jserver = JFLServer(jfl, jmake_topology(jfl), jmake_data(
+        jfl, "cifar10", seed=0, **SMALL_DATA), method=method, seed=seed,
+        scenario=jscen, engine="host")
+    tserver = TFLServer(tfl, tmake_topology(tfl),
+                        tmake_data(tfl, **SMALL_DATA), method=method,
+                        seed=seed, scenario=tscen, device="cpu",
+                        engine="host")
+    assert tserver.engine_resolved == "host"
+    tserver.params = convert.params_from_numpy(
+        {k: np.asarray(v) for k, v in jserver.params.items()},
+        device=torch.device("cpu"))
+    trained = {"j": [], "t": []}
+    if monkeypatch is not None:
+        j_train, t_train = jserver._train_selected, tclient.local_train
+
+        def j_spy(*args):
+            out = j_train(*args)
+            trained["j"].append(np.asarray(jengine.ravel_rows(out)))
+            return out
+
+        def t_spy(*args, **kw):
+            out = t_train(*args, **kw)
+            trained["t"].append(tengine.ravel_rows(out).numpy())
+            return out
+        jserver._train_selected = j_spy
+        monkeypatch.setattr(tclient, "local_train", t_spy)
+    teng = tserver._eng
+    steps, ref_steps = teng.schedule(tserver._eng_data)
+    n, k, d = teng.n, teng.k, teng.d_params
+    noisy = teng.client_wire_noise or teng.edge_wire_noise
+    drifts = []
+    diverged = False
+    for t in range(rounds):
+        jm = jserver.run_round(t)
+        delivered = np.asarray(jm.selected)
+        draws = host_reference_draws(
+            seed, t, n, steps, jfl.local_batch,
+            SMALL_DATA["samples_per_client"], ref_steps, jfl.ref_samples,
+            d=d if noisy else 0, k=k, edge_fold=teng.edge_noise_fold,
+            client_sub=None if teng.hier else teng.client_sub,
+            attack_shape=((int(delivered.sum()), d)
+                          if jfl.attack == "gaussian" else None))
+        tm = tserver.run_round(t, draws)
+        assert np.array_equal(tm.selected, delivered), t
+        assert (tm.cost, tm.extra["intra_bytes"], tm.extra["cross_bytes"]
+                ) == (jm.cost, jm.extra["intra_bytes"],
+                      jm.extra["cross_bytes"]), t
+        drift = dict(rep=rel(tm.reputation, jm.reputation),
+                     params=rel(flat(convert.params_to_numpy(tserver.params)),
+                                flat(jserver.params)))
+        if jserver._feat_sep is not None:
+            drift["feat_sep"] = rel(tserver._feat_sep.numpy(),
+                                    jserver._feat_sep)
+            drift["feat_weights"] = rel(tm.extra["feat_weights"],
+                                        jserver._feat_weights)
+        assert max(drift.values()) <= (5e-2 if diverged else 1e-4), (t, drift)
+        for name in ("_res_client", "_res_edge"):
+            a, b = getattr(tserver, name), getattr(jserver, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                drift[name] = rel(a.numpy(), b)
+                assert drift[name] <= 5e-2, (t, name, drift[name])
+        if trained["j"]:
+            # the clients' LocalTrain is each loop's first this round
+            apart = [rel(a, b) for a, b in zip(trained["t"][0],
+                                                trained["j"][0])]
+            drift["rows_apart"] = max(apart)
+            diverged = diverged or max(apart) > 1e-4
+            trained["j"].clear()
+            trained["t"].clear()
         drifts.append(drift)
     return drifts

@@ -223,26 +223,32 @@ def _host_hook(*args):
     raise AssertionError("a host hook is never called by the engine")
 
 
-# what the reference routes to its host round loop: dropout under an
-# order-statistic aggregator, and host hooks without a jit_hooks twin
+# what no round loop of the port runs: the reference's mesh-sharded engine
+# (every method), and the round engine forced onto what only the host
+# round loop runs (dropout under an order statistic, host hooks without
+# a jit_hooks twin)
 @pytest.mark.parametrize("override", [
-    dict(aggregator="krum", scenario="dropout"),
-    dict(aggregator="trimmed_mean", scenario="dropout"),
-    dict(aggregator="median", scenario="dropout"),
+    *(dict(aggregator=m, engine="shard") for m in tengine.METHODS),
+    dict(aggregator="krum", scenario="dropout", engine="jit"),
+    dict(aggregator="trimmed_mean", scenario="dropout", engine="jit"),
+    dict(aggregator="median", scenario="dropout", engine="jit"),
     dict(scenario=Scenario("host_deliver", "environment",
-                           deliver=_host_hook)),
+                           deliver=_host_hook), engine="jit"),
     dict(scenario=Scenario("host_round_start", "environment",
-                           on_round_start=_host_hook)),
+                           on_round_start=_host_hook), engine="jit"),
     dict(aggregator="fedavg",
          scenario=Scenario("host_malice", "adaptive",
-                           malicious_now=_host_hook))])
+                           malicious_now=_host_hook), engine="jit")])
 def test_unported_configs_raise(override):
     override = dict(override)
-    scenario = override.pop("scenario")
+    scenario = override.pop("scenario", None)
+    engine = override.pop("engine")
     fl = FLConfig(**{**_FL, **override})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 3"):
+    err, match = ((NotImplementedError, "ROADMAP queue A item 6")
+                  if engine == "shard" else (ValueError, "not jittable"))
+    with pytest.raises(err, match=match):
         run_simulation(fl, rounds=1, device="cpu", scenario=scenario,
-                       data=make_data(fl, **_DATA))
+                       data=make_data(fl, **_DATA), engine=engine)
 
 
 def _imports(path: pathlib.Path):

@@ -45,6 +45,9 @@ def test_registry_matches_reference():
         assert (got.level, got.description, got.overrides, got.knobs) == (
             want.level, want.description, want.overrides, want.knobs), name
         assert got.jittable == want.jittable, name
+        for hook in ("on_round_start", "deliver", "malicious_now"):
+            assert ((getattr(got, hook) is None)
+                    == (getattr(want, hook) is None)), (name, hook)
         if want.jit_hooks is None:
             assert got.jit_hooks is None, name
         else:
