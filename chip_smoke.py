@@ -84,7 +84,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
      16 greedy tokens; linear_scan exactly once per "R" layer per
      prefill (8 x 18 = 144), every FL kernel never; logits finite,
      tokens in the vocabulary; the parameter count held, peak memory,
-     prefill ms per request and decode tokens/s.
+     prefill ms per request and decode tokens/s;
+6. telemetry (between the FL paths and SERVE): HEADLINE, DEFENSE and
+   HOST_HEADLINE, ``ROUNDS`` rounds each through ``run_simulation`` with
+   a JSONL and a list sink — every event valid, the JSONL file the
+   stream, the last round's cumulative $ and bytes equal to the
+   SimResult's, its ``params_l2`` within 1e-5 of a float64 norm of the
+   final params, DEFENSE's feature weights in every round, launches
+   exactly as ``PATHS`` states (telemetry adds none); the report CLI
+   renders the HEADLINE stream and ``--validate-only`` refuses a broken
+   line; ``run_simulation_batch``: one seed, streamed live, against the
+   HEADLINE ``FLServer`` lines (masks, bytes, $ and the mask digest
+   exact, floats within 1e-5; the count of byte-identical lines
+   printed), two seeds on shared data against single-seed runs (totals
+   exact); HEADLINE's steady rounds/s with telemetry off, on, on, off,
+   off, on (``OVERHEAD_ROUNDS`` rounds a turn);
+   a checkpoint of HEADLINE's params, reputation and a bf16 leaf,
+   restored on the card bit for bit.
 
 Prints one ``{"kernels": [...]}`` line (one entry per Pallas kernel,
 launches per path under ``launches_by_path``; the fused trust stage's
@@ -100,8 +116,10 @@ line. Exits non-zero without a CUDA device, and when
 
 traces two steady rounds of each FL path, and one steady prefill and 16
 decode steps of the serve path, with ``torch.profiler`` and prints where
-the device time goes (kernel groups, top kernels, idle share of the wall
-time) instead of running the checks. ``--out DIR`` also writes the
+the device time goes (kernel groups, round phases — the ``round.*``
+labels of ``Engine.step`` and the host loop —, top kernels, idle share
+of the wall time) instead of running the checks, and checks that a
+``telemetry.trace`` capture of a DEFENSE round holds the six labels. ``--out DIR`` also writes the
 details (``chip_smoke.json``; with ``--profile``, ``profile.json`` and
 the Chrome traces) into DIR.
 """
@@ -109,10 +127,13 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -135,8 +156,12 @@ SOURCES.update(trust_score=f"{CSRC}/trust_stage.cu",
 # the FL paths on which the fused trust_stage launch computes each
 # function (trust_features only under trust_features="multi")
 FUSED_INTO_STAGE = {"trust_score": ("headline", "defense", "dropout",
-                                    "host_headline", "host_defense"),
-                    "trust_features": ("defense", "host_defense")}
+                                    "host_headline", "host_defense",
+                                    "telemetry_headline", "telemetry_defense",
+                                    "telemetry_host_headline",
+                                    "batch_headline"),
+                    "trust_features": ("defense", "host_defense",
+                                       "telemetry_defense")}
 # the test suite's small topology at the same headline knobs
 SMALL = dict(n_clouds=3, clients_per_cloud=4, clients_per_round=6,
              local_epochs=1, local_batch=8, ref_samples=16)
@@ -190,6 +215,13 @@ PATHS = {
     "dropout_median": (dict(TOPK_WIRE, aggregator="median"), "dropout",
                        "auto", _per_round(topk_mask=1)),
 }
+# the telemetry phase's paths (run_simulation with a JSONL sink), and the
+# steady rounds a turn of its telemetry off/on rounds/s comparison
+TELEMETRY_PATHS = ("headline", "defense", "host_headline")
+OVERHEAD_ROUNDS = 16
+# the round phases' profiler labels (Engine.step, the host round loop)
+PHASES = ("round.select", "round.train", "round.attack", "round.compress",
+          "round.aggregate", "round.account")
 # the serve path: recurrentgemma-2b at full width, as the launcher runs it
 SERVE = dict(arch="recurrentgemma-2b", batch=4, requests=8, prompt_len=4096,
              gen=16, dtype="bfloat16", seed=0)
@@ -1021,6 +1053,269 @@ def main_path_phase(torch, ops, dev, path: str):
                         intra_bytes=server.cum_intra_bytes)
 
 
+@contextmanager
+def captured_servers():
+    """The ``FLServer``s that ``run_simulation`` builds inside the
+    ``with`` body, in order (the harness returns no params; the checks
+    below read the final ones)."""
+    from repro_torch.federated import simulation
+
+    made, make = [], simulation.FLServer
+
+    def build(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
+    simulation.FLServer = build
+    try:
+        yield made
+    finally:
+        simulation.FLServer = make
+
+
+def _round_events(events):
+    return [e for e in events if e["event"] == "round"]
+
+
+# round-event fields the batch driver must reproduce exactly (masks,
+# bytes, $), and the float digests held to 1e-5 relative
+_EXACT = ("t", "n_selected", "n_delivered", "n_active_malicious",
+          "intra_bytes", "cross_bytes", "cost", "cum_cost",
+          "cum_intra_bytes", "cum_cross_bytes", "price_mult",
+          "compression_ratio")
+_FLOATS = ("rep_mean", "rep_min", "rep_max", "rep_honest_mean",
+           "rep_malicious_mean")
+_COMPARED = ("byte_identical", "first_differing_round", "float_drift",
+             "drifted_most")
+
+
+def compare_round_lines(a, b, what: str, strict: bool = True):
+    """Two drivers' round events, round by round: exact fields and the
+    delivered-mask digest equal, floats within 1e-5 relative (checked
+    when ``strict``). Returns the count of byte-identical lines, the
+    first round whose exact fields or mask differ (None), the worst
+    float drift before it and the field that drifted most."""
+    from repro_torch.telemetry import encode
+
+    check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} round events")
+    worst, first, field = 0.0, None, None
+    for x, y in zip(a, b):
+        same = (all(x[k] == y[k] for k in _EXACT)
+                and x["digest"]["delivered_sha"]
+                == y["digest"]["delivered_sha"])
+        check(same or not strict,
+              f"{what} t={y['t']}: masks, bytes or $ differ")
+        if not same:
+            first = y["t"]
+            break
+        pairs = [(k, x[k], y[k]) for k in _FLOATS if y[k] is not None]
+        pairs += [(k, x["digest"][k], y["digest"][k])
+                  for k in ("params_l2", "rep_l2", "rep_sum")]
+        pairs += [("feat_weights", u, v) for u, v in
+                  zip(x["feat_weights"] or [], y["feat_weights"] or [])]
+        for k, u, v in pairs:
+            drift = abs(u - v) / max(abs(v), 1e-30)
+            if drift > worst:
+                worst, field = drift, f"{k} t={y['t']}"
+    check(worst <= 1e-5 or not strict,
+          f"{what}: float fields {worst:.2e} apart > 1e-5 ({field})")
+    identical = sum(encode(x) == encode(y) for x, y in zip(a, b))
+    return identical, first, worst, field
+
+
+@contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN restricted to its deterministic algorithms in the body."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def steady_rounds_per_s(torch, server, rounds: int) -> float:
+    """Rounds/s of ``rounds`` rounds after one warm-up round, each round
+    timed on the host clock up to ``torch.cuda.synchronize()``."""
+    server.run_round(0)
+    torch.cuda.synchronize()
+    times = []
+    for t in range(1, 1 + rounds):
+        t0 = time.perf_counter()
+        server.run_round(t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return rounds / sum(times)
+
+
+def telemetry_phase(torch, ops, dev, work: Path):
+    """``TELEMETRY_PATHS`` through ``run_simulation`` with a JSONL and a
+    list sink, ``run_simulation_batch`` (one seed live, two seeds on
+    shared data), headline's rounds/s with telemetry off and on, the
+    report CLI on a stream of the card, and a checkpoint round trip on
+    the card. Work files go to ``work``."""
+    import math
+
+    import numpy as np
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.federated import (FLServer, make_data, make_topology,
+                                       run_simulation, run_simulation_batch)
+    from repro_torch.telemetry import (JsonlSink, ListSink, Telemetry,
+                                       encode, validate_events)
+
+    data = make_data(FLConfig(**PATHS["headline"][0]))
+    rec, streams = {}, {}
+    for path in TELEMETRY_PATHS:
+        knobs, scenario, engine, per_round = PATHS[path]
+        fl = FLConfig(**knobs)
+        sink, jsonl = ListSink(), work / f"{path}.jsonl"
+        ops.reset_launch_counts()
+        with captured_servers() as made, \
+                Telemetry(JsonlSink(jsonl), sink) as tel:
+            res = run_simulation(fl, method=fl.aggregator, scenario=scenario,
+                                 rounds=ROUNDS, eval_every=ROUNDS, data=data,
+                                 device=dev, engine=engine, telemetry=tel)
+        counts = ops.launch_counts()
+        want = {n: c * ROUNDS for n, c in per_round.items()}
+        check(counts == want,
+              f"telemetry {path}: launches {counts}, expected {want}")
+        events = sink.events
+        errors = validate_events(events)
+        check(not errors, f"telemetry {path}: invalid events {errors[:3]}")
+        check(jsonl.read_text().splitlines() == [encode(e) for e in events],
+              f"telemetry {path}: the JSONL file is not the stream")
+        check([e["event"] for e in events] == ["run_start"]
+              + ["round", "span"] * ROUNDS + ["eval", "run_end"],
+              f"telemetry {path}: events {[e['event'] for e in events]}")
+        rounds = _round_events(events)
+        last = rounds[-1]
+        check((last["cum_cost"], last["cum_intra_bytes"],
+               last["cum_cross_bytes"])
+              == (res.total_cost, res.intra_bytes, res.cross_bytes),
+              f"telemetry {path}: totals differ from the SimResult's")
+        server = made[0]
+        check(server.engine_resolved == ("host" if engine == "host"
+                                         else "jit"),
+              f"telemetry {path}: engine {server.engine_resolved}")
+        l2 = math.sqrt(sum(float(torch.sum(p.double() ** 2))
+                           for p in server.params.values()))
+        l2_rel = abs(last["digest"]["params_l2"] - l2) / l2
+        check(l2_rel <= 1e-5,
+              f"telemetry {path}: params_l2 {l2_rel:.2e} from float64")
+        if fl.trust_features == "multi":
+            check(all(e["feat_weights"] is not None for e in rounds),
+                  f"telemetry {path}: feat_weights missing")
+        spans_s = [e["seconds"] for e in events if e["event"] == "span"]
+        streams[path] = rounds
+        rec[path] = dict(launches=counts, params_l2_rel=l2_rel,
+                         first_round_s=spans_s[0], round_s=spans_s[1:],
+                         cum_cost=last["cum_cost"])
+        if path == "headline":
+            headline = server
+
+    # the report CLI on the card's headline stream; a broken line fails it
+    def cli(*args):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.telemetry.report", *args],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+    shown = cli(str(work / "headline.jsonl"))
+    check(shown.returncode == 0 and "intra MB" in shown.stdout
+          and "cum_cost=$" in shown.stdout,
+          f"report CLI: rc {shown.returncode} {shown.stderr[-500:]}")
+    check(cli(str(work / "defense.jsonl"), "--validate-only").returncode
+          == 0, "report CLI --validate-only refused the defense stream")
+    broken = work / "broken.jsonl"
+    broken.write_text((work / "host_headline.jsonl").read_text()
+                      + '{"schema":"nope","event":"round"}\n')
+    check(cli(str(broken), "--validate-only").returncode == 1,
+          "report CLI --validate-only passed a broken line")
+    rec["report"] = shown.stdout
+
+    # run_simulation_batch: one seed live through Engine.run's tap,
+    # against the FLServer driver's headline lines above — as a user runs
+    # them (cuDNN free to pick non-deterministic algorithms: how far the
+    # two runs of one seed agree is recorded), then both again with
+    # cuDNN deterministic, held exact; two seeds on shared data against
+    # single-seed runs
+    fl = FLConfig(**PATHS["headline"][0])
+
+    def batch(seeds, tel=None):
+        return run_simulation_batch(fl, seeds=seeds, rounds=ROUNDS,
+                                    data=data, device=dev, telemetry=tel)
+    live = ListSink()
+    ops.reset_launch_counts()
+    batch([0], Telemetry(live))
+    counts = ops.launch_counts()
+    want = {n: c * ROUNDS for n, c in PATHS["headline"][3].items()}
+    check(counts == want, f"batch: launches {counts}, expected {want}")
+    check(not validate_events(live.events), "batch: invalid events")
+    default = compare_round_lines(_round_events(live.events),
+                                  streams["headline"], "batch vs FLServer",
+                                  strict=False)
+    with deterministic_cudnn(torch):
+        server_sink, live = ListSink(), ListSink()
+        run_simulation(fl, rounds=ROUNDS, eval_every=ROUNDS, data=data,
+                       device=dev, engine="jit",
+                       telemetry=Telemetry(server_sink))
+        batch([0], Telemetry(live))
+        strict = compare_round_lines(
+            _round_events(live.events), _round_events(server_sink.events),
+            "batch vs FLServer, deterministic cuDNN")
+        two, one, one1 = batch([0, 1]), batch([0]), batch([1])
+    for single, batched in ((one[0], two[0]), (one1[0], two[1])):
+        check((single.total_cost, single.intra_bytes, single.cross_bytes)
+              == (batched.total_cost, batched.intra_bytes,
+                  batched.cross_bytes)
+              and np.array_equal(single.reputation, batched.reputation),
+              "batch seeds=[0, 1]: a seed's run differs from its own")
+    rec["batch"] = dict(launches=counts, lines=ROUNDS,
+                        default=dict(zip(_COMPARED, default)),
+                        deterministic=dict(zip(_COMPARED, strict)),
+                        totals=[r.total_cost for r in two])
+
+    # rounds/s on headline with telemetry off, on, on, off, off, on
+    fl = FLConfig(**PATHS["headline"][0])
+    topo = make_topology(fl)
+    rates = []
+    for i, on in enumerate((False, True, True, False, False, True)):
+        tel = Telemetry(JsonlSink(work / f"rate{i}.jsonl")) if on else None
+        server = FLServer(fl, topo, data, seed=0, device=dev, engine="jit",
+                          telemetry=tel)
+        rates.append((on, steady_rounds_per_s(torch, server,
+                                              OVERHEAD_ROUNDS)))
+        if tel is not None:
+            tel.close()
+    off = [r for on, r in rates if not on]
+    on = [r for on, r in rates if on]
+    rec["overhead"] = dict(turns=rates, ratio=statistics.median(on)
+                           / statistics.median(off))
+
+    # checkpoint: the headline server's params and reputation, and a bf16
+    # leaf, saved and restored on the card bit for bit
+    tree = {"params": headline.params, "rep": headline.rep.ema,
+            "bf16": headline.params["fc2_w"].to(torch.bfloat16)}
+    save_checkpoint(str(work / "ckpt"), tree, step=ROUNDS)
+    template = {"params": {k: torch.zeros_like(v)
+                           for k, v in tree["params"].items()},
+                "rep": torch.zeros_like(tree["rep"]),
+                "bf16": torch.zeros_like(tree["bf16"])}
+    back, meta = restore_checkpoint(str(work / "ckpt"), template)
+    check(meta["step"] == ROUNDS, "checkpoint: metadata lost")
+    for name, a, b in (
+            [(k, back["params"][k], v) for k, v in tree["params"].items()]
+            + [("rep", back["rep"], tree["rep"]),
+               ("bf16", back["bf16"], tree["bf16"])]):
+        check(a.device == b.device and a.dtype == b.dtype
+              and torch.equal(a.view(torch.int16) if a.dtype
+                              == torch.bfloat16 else a,
+                              b.view(torch.int16) if b.dtype
+                              == torch.bfloat16 else b),
+              f"checkpoint: {name} not restored bit for bit on the card")
+    rec["checkpoint"] = dict(leaves=meta["n_arrays"])
+    return rec
+
+
 # first match wins: cuDNN's implicit-GEMM convolutions also say "gemm"
 _GROUPS = (("port kernels", ("trust_stage_kernel", "weighted_agg_kernel",
                              "topk_mask_kernel", "quantize_kernel",
@@ -1047,11 +1342,45 @@ def out_dir():
     return out
 
 
+def _busy_us(intervals) -> float:
+    """µs covered by the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _phase_busy_us(labels, kern):
+    """Device busy µs by round phase. The profiler copies each
+    ``round.*`` label onto the device as a range that opens at the first
+    kernel launched inside it; a kernel belongs to the phase whose range
+    opened last before it started (work queued in a phase runs after
+    the range's first kernel, and before the next phase's), and kernels
+    before any range to "unlabelled". Busy time is the union of the
+    phase's kernel intervals (kernel intervals overlap: their durations
+    sum to about twice the busy time on the FL paths)."""
+    import bisect
+    from collections import defaultdict
+
+    opens = sorted((e.time_range.start, e.name) for e in labels
+                   if e.name in PHASES)
+    starts = [a for a, _ in opens]
+    by_phase = defaultdict(list)
+    for k in kern:
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        by_phase[opens[i][1] if i >= 0 else "unlabelled"].append(
+            (k.time_range.start, k.time_range.end))
+    return {p: _busy_us(iv) for p, iv in by_phase.items()}
+
+
 def _trace(torch, out, name: str, run, n: int, unit: str):
     """Run ``run()`` (``n`` units of work) under ``torch.profiler`` and
-    report, per unit, the device's busy time by kernel group, its idle
-    share of the host-clock wall time and the top kernels; writes the
-    Chrome trace to ``out``/trace_<name>.json when ``out`` is given."""
+    report, per unit, the device's busy time by kernel group and by
+    round phase, its idle share of the host-clock wall time and the top
+    kernels; writes the Chrome trace to ``out``/trace_<name>.json when
+    ``out`` is given."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1064,13 +1393,16 @@ def _trace(torch, out, name: str, run, n: int, unit: str):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    # the device-side copies of the round labels are ranges, not kernels
+    labels = [e for e in events if e.device_type == DeviceType.CUDA
+              and (e.name in PHASES or getattr(e, "is_user_annotation",
+                                               False))]
+    label_ids = {id(e) for e in labels}
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and id(e) not in label_ids]
     check(bool(kern), "the profiler recorded no device kernel")
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us = _busy_us((e.time_range.start, e.time_range.end) for e in kern)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kern:
         by_name[e.name][0] += e.time_range.elapsed_us()
@@ -1083,10 +1415,13 @@ def _trace(torch, out, name: str, run, n: int, unit: str):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     if out is not None:
         prof.export_chrome_trace(str(out / f"trace_{name}.json"))
+    phases = _phase_busy_us(labels, kern)
     return dict(unit=unit, n=n, wall_ms=wall_us / n / 1e3,
                 busy_ms=busy_us / n / 1e3, idle_share=1.0 - busy_us / wall_us,
                 kernels=len(kern) / n,
                 group_ms={g: us / 1e3 for g, us in groups.items()},
+                phase_busy_ms={p: us / n / 1e3 for p, us in phases.items()},
+                device_labels=len(labels) / n,
                 top=[dict(name=k[:120], ms=us / n / 1e3, launches=c / n)
                      for k, (us, c) in top])
 
@@ -1109,6 +1444,28 @@ def profile_phase(torch, dev, out, path: str, rounds: int = 2):
         for t in range(2, 2 + rounds):
             server.run_round(t)
     return _trace(torch, out, path, run, rounds, "round")
+
+
+def trace_labels_phase(torch, dev, work: Path):
+    """``--profile``: one steady DEFENSE round (every phase runs: the
+    attack, the client wire) captured with ``telemetry.trace``; the
+    Chrome trace it writes must hold the six round labels."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.federated import FLServer, make_data, make_topology
+    from repro_torch.telemetry import trace
+
+    knobs, scenario, engine, _ = PATHS["defense"]
+    fl = FLConfig(**knobs)
+    server = FLServer(fl, make_topology(fl), make_data(fl), seed=0,
+                      device=dev, engine=engine)
+    server.run_round(0)
+    with trace(str(work / "trace")):
+        server.run_round(1)
+    doc = json.loads((work / "trace" / "trace.json").read_text())
+    names = {e.get("name") for e in doc.get("traceEvents", [])}
+    missing = [p for p in PHASES if p not in names]
+    check(not missing, f"trace(): labels {missing} not in the capture")
+    return dict(labels=list(PHASES), events=len(doc["traceEvents"]))
 
 
 def profile_serve(torch, dev, out):
@@ -1176,6 +1533,8 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         prof = {path: profile_phase(torch, dev, out, path) for path in PATHS}
         prof.update(profile_serve(torch, dev, out))
+        with tempfile.TemporaryDirectory() as work:
+            prof["trace_labels"] = trace_labels_phase(torch, dev, Path(work))
         if out is not None:
             (out / "profile.json").write_text(json.dumps(prof, indent=1))
         print(json.dumps(prof, indent=1))
@@ -1199,6 +1558,29 @@ def main() -> int:
               f"over {ROUNDS} rounds, "
               f"{main[path]['steady_rounds_per_s']:.3f} after the first",
               flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        tel = telemetry_phase(torch, ops, dev, Path(work))
+    for path in TELEMETRY_PATHS:
+        print(f"telemetry {path}: {tel[path]}", flush=True)
+        counts[f"telemetry_{path}"] = tel[path]["launches"]
+    counts["batch_headline"] = tel["batch"]["launches"]
+    print(f"telemetry report CLI on the headline stream:\n"
+          f"{tel['report'].rstrip()}", flush=True)
+    b, o = tel["batch"], tel["overhead"]
+    for mode in ("default", "deterministic"):
+        m = b[mode]
+        print(f"telemetry run_simulation_batch seeds=[0] vs FLServer, "
+              f"cuDNN {mode}: {m['byte_identical']} of {b['lines']} round "
+              f"lines byte-identical, first differing round "
+              f"{m['first_differing_round']}, floats {m['float_drift']:.3e} "
+              f"apart before it ({m['drifted_most']})", flush=True)
+    print(f"telemetry run_simulation_batch seeds=[0, 1]: totals "
+          f"{b['totals']}, each seed's run equal to its own", flush=True)
+    print(f"telemetry overhead ({card}): headline steady rounds/s "
+          f"off/on/on/off/off/on {[round(r, 3) for _, r in o['turns']]}, "
+          f"median on / median off {o['ratio']:.4f}", flush=True)
+    print(f"telemetry checkpoint: {tel['checkpoint']['leaves']} leaves "
+          f"restored bit for bit on the card", flush=True)
     counts["serve"], main["serve"] = serve_path_phase(torch, ops, dev)
     sv = main["serve"]
     print(f"main path serve: launches {counts['serve']}; {sv}", flush=True)
@@ -1239,7 +1621,7 @@ def main() -> int:
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, kernels=rec, launches=counts, agreement=worst,
-                 main_paths=main), indent=1, default=float))
+                 main_paths=main, telemetry=tel), indent=1, default=float))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.compress import build_link_policy, ef_step_masked
 from repro_torch.configs.base import FLConfig
@@ -69,6 +70,8 @@ from repro_torch.data.pipeline import FederatedData
 from repro_torch.federated import client as client_mod
 from repro_torch.kernels import ops
 from repro_torch.scenarios.base import JitHooks, Scenario
+from repro_torch.telemetry import taps as taps_mod
+from repro_torch.telemetry.taps import TapSpec
 
 Tensor = torch.Tensor
 
@@ -115,12 +118,13 @@ class RoundState(NamedTuple):
 
 
 class RoundOut(NamedTuple):
-    """Per-round metrics."""
+    """Per-round metrics (:meth:`Engine.run` stacks each to (T, ...))."""
     delivered: Tensor            # (N,) bool — selected AND delivered
     rep: Tensor                  # (N,) post-update reputation EMA
     cost: Tensor                 # () $ this round (float32 mirror)
     intra_bytes: Tensor          # () wire bytes, intra-class
     cross_bytes: Tensor          # () wire bytes, cross-cloud
+    params_l2: Tensor            # () float32 L2 over all params after the update
     feat_weights: Tensor         # (F,) feature mixing weights ((0,) under "scalar")
 
 
@@ -300,6 +304,14 @@ def static_from(flcfg: FLConfig, topo: CloudTopology,
 # ---------------------------------------------------------------------------
 # flat-vector plumbing (the reference's ravel_pytree layout: sorted keys,
 # each leaf row-major in JAX layout)
+
+def tree_l2(params: Dict[str, Tensor]) -> Tensor:
+    """() float32 L2 norm over every leaf of ``params`` — the state
+    digest of each round (the reference's ``tree_l2``), two reductions
+    on the params' device: the leaves' norms, then the norm of those."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm([params[k] for k in sorted(params)])))
+
 
 def ravel_rows(tree: Dict[str, Tensor]) -> Tensor:
     """Flatten a dict of (B, ...) leaves into (B, D), sorted-key order."""
@@ -675,78 +687,93 @@ class Engine:
     def step(self, state: RoundState, data: ClientData, t: int,
              draws: Optional[RoundDraws] = None
              ) -> Tuple[RoundState, RoundOut]:
+        """One round. Its phases run under the reference's profiler labels
+        (``record_function``: ``round.select``, ``round.train``,
+        ``round.attack``, ``round.compress`` where the client wire is
+        lossy, ``round.aggregate``, ``round.account``); ``round.train``
+        also holds the cloud references' LocalTrain, which the reference
+        runs under ``round.aggregate``."""
         st, dev = self.static, self.device
-        if draws is None:
-            draws = self.draws(state.seed, t, data)
-        draws = RoundDraws(*(None if d is None
-                             else torch.as_tensor(d, device=dev)
-                             for d in draws))
-        c_cross_t = st.c_cross_at(t)
-
-        # selection, then delivery (dropped clients train too — fixed
-        # shapes — but are masked below)
-        sel = self.select(state.rep_ema, c_cross_t, draws)
-        delivered = self.deliver(sel, draws)
-        sel_idx = torch.nonzero(sel).reshape(-1)                 # ascending
-        valid = delivered[sel_idx]
+        with record_function("round.select"):
+            if draws is None:
+                draws = self.draws(state.seed, t, data)
+            draws = RoundDraws(*(None if d is None
+                                 else torch.as_tensor(d, device=dev)
+                                 for d in draws))
+            c_cross_t = st.c_cross_at(t)
+            # selection, then delivery (dropped clients train too — fixed
+            # shapes — but are masked below)
+            sel = self.select(state.rep_ema, c_cross_t, draws)
+            delivered = self.deliver(sel, draws)
+            sel_idx = torch.nonzero(sel).reshape(-1)             # ascending
+            valid = delivered[sel_idx]
 
         # local training of the selected clients and, where the method
         # reads them, the cloud references
-        upd = client_mod.local_train(
-            state.params, data.client_x[sel_idx], data.client_y[sel_idx],
-            draws.client_idx[sel_idx].long(), lr=st.lr)
-        flat_sel = ravel_rows(upd)                                # (m, D)
-        ref_flat = None
-        if self.hier or st.method == "fltrust":
-            ref_idx = draws.ref_idx.long()[None].expand(self.k, -1, -1)
-            ref_flat = ravel_rows(client_mod.local_train(
-                state.params, data.ref_x, data.ref_y, ref_idx, lr=st.lr))
+        with record_function("round.train"):
+            upd = client_mod.local_train(
+                state.params, data.client_x[sel_idx], data.client_y[sel_idx],
+                draws.client_idx[sel_idx].long(), lr=st.lr)
+            flat_sel = ravel_rows(upd)                            # (m, D)
+            ref_flat = None
+            if self.hier or st.method == "fltrust":
+                ref_idx = draws.ref_idx.long()[None].expand(self.k, -1, -1)
+                ref_flat = ravel_rows(client_mod.local_train(
+                    state.params, data.ref_x, data.ref_y, ref_idx,
+                    lr=st.lr))
 
         # update-level attack on this round's ACTIVE malicious rows
-        if UPDATE_ATTACKS[st.attack] is not None:
-            mal = data.malicious
-            if t < st.malice_warmup:
-                mal = torch.zeros_like(mal)
-            noise = draws.attack_noise
-            if st.attack in NOISY_ATTACKS and noise is None:
-                noise = self.attack_noise(state.seed, t, flat_sel.shape[0])
-            flat_sel = apply_update_attack(
-                st.attack, flat_sel, mal[sel_idx] & valid, noise,
-                sigma=st.gaussian_sigma, scale=st.attack_scale,
-                z=st.attack_z, valid=valid if st.p_drop > 0 else None)
+        with record_function("round.attack"):
+            if UPDATE_ATTACKS[st.attack] is not None:
+                mal = data.malicious
+                if t < st.malice_warmup:
+                    mal = torch.zeros_like(mal)
+                noise = draws.attack_noise
+                if st.attack in NOISY_ATTACKS and noise is None:
+                    noise = self.attack_noise(state.seed, t,
+                                              flat_sel.shape[0])
+                flat_sel = apply_update_attack(
+                    st.attack, flat_sel, mal[sel_idx] & valid, noise,
+                    sigma=st.gaussian_sigma, scale=st.attack_scale,
+                    z=st.attack_z, valid=valid if st.p_drop > 0 else None)
 
         res_client = state.res_client
         if self.client_wire_active:
-            noise = None
-            if self.client_wire_noise:
-                noise = (draws.client_noise[sel_idx]
-                         if draws.client_noise is not None
-                         else self.client_noise(state.seed, t,
-                                                sel_idx.tolist()))
-            flat_sel = self.client_wire(flat_sel, res_client, sel_idx, valid,
-                                        noise)
-        # what did not deliver aggregates as a zero row
-        if st.p_drop > 0:
-            flat_sel = torch.where(valid[:, None], flat_sel, 0.0)
+            with record_function("round.compress"):
+                noise = None
+                if self.client_wire_noise:
+                    noise = (draws.client_noise[sel_idx]
+                             if draws.client_noise is not None
+                             else self.client_noise(state.seed, t,
+                                                    sel_idx.tolist()))
+                flat_sel = self.client_wire(flat_sel, res_client, sel_idx,
+                                            valid, noise)
+        with record_function("round.aggregate"):
+            # what did not deliver aggregates as a zero row
+            if st.p_drop > 0:
+                flat_sel = torch.where(valid[:, None], flat_sel, 0.0)
+            if self.hier:
+                update, new_rep, res_edge, new_feat_sep, feat_w = (
+                    self._hierarchical_update(state, flat_sel, ref_flat,
+                                              sel_idx, valid, draws, t))
+            else:
+                update = self._flat_update(flat_sel, valid, ref_flat)
+                new_rep, res_edge = state.rep_ema, state.res_edge
+                new_feat_sep = state.feat_sep
+                feat_w = torch.zeros(0, device=dev)
+            # w <- w - eta * g
+            delta = unflatten_like(update * st.server_lr, state.params)
+            params = {kk: state.params[kk] - delta[kk]
+                      for kk in state.params}
 
-        if self.hier:
-            update, new_rep, res_edge, new_feat_sep, feat_w = (
-                self._hierarchical_update(state, flat_sel, ref_flat,
-                                          sel_idx, valid, draws, t))
-        else:
-            update = self._flat_update(flat_sel, valid, ref_flat)
-            new_rep, res_edge = state.rep_ema, state.res_edge
-            new_feat_sep, feat_w = state.feat_sep, torch.zeros(0, device=dev)
-
-        # w <- w - eta * g
-        delta = unflatten_like(update * st.server_lr, state.params)
-        params = {kk: state.params[kk] - delta[kk] for kk in state.params}
-
-        # float32 wire accounting mirror (FLServer bills float64 on host)
-        intra_b, cross_b = round_bytes_torch(delivered, self.cloud_of,
-                                             self.agg, self.cp, self.ep,
-                                             hierarchical=self.hier)
-        cost = (intra_b * st.c_intra + cross_b * c_cross_t) / _GB
+        with record_function("round.account"):
+            # float32 wire accounting mirror (FLServer bills float64 on
+            # host) and the state digest
+            intra_b, cross_b = round_bytes_torch(delivered, self.cloud_of,
+                                                 self.agg, self.cp, self.ep,
+                                                 hierarchical=self.hier)
+            cost = (intra_b * st.c_intra + cross_b * c_cross_t) / _GB
+            digest = tree_l2(params)
         new_state = RoundState(
             params=params, rep_ema=new_rep, res_client=res_client,
             res_edge=res_edge, cum_cost=state.cum_cost + cost,
@@ -755,8 +782,25 @@ class Engine:
             feat_sep=new_feat_sep, seed=state.seed)
         out = RoundOut(delivered=delivered, rep=new_rep, cost=cost,
                        intra_bytes=intra_b, cross_bytes=cross_b,
-                       feat_weights=feat_w)
+                       params_l2=digest, feat_weights=feat_w)
         return new_state, out
+
+    def run(self, state: RoundState, data: ClientData, rounds: int,
+            tap: Optional[TapSpec] = None) -> Tuple[RoundState, RoundOut]:
+        """``rounds`` rounds of :meth:`step` from ``state`` in own mode:
+        the final state and the rounds' ``RoundOut`` with every field
+        stacked (T, ...) on the device. With an enabled ``tap``
+        (``telemetry.taps``), each round's outputs go to the installed
+        collector as numpy as the round ends; untapped, the run adds no
+        device read of its own."""
+        step = taps_mod.instrument(self.step, tap)
+        outs = []
+        for t in range(rounds):
+            state, out = step(state, data, t)
+            outs.append(out)
+        if not outs:
+            raise ValueError("Engine.run needs rounds >= 1")
+        return state, RoundOut(*(torch.stack(xs) for xs in zip(*outs)))
 
     def _hierarchical_update(self, state: RoundState, flat_sel: Tensor,
                              ref_flat: Tensor, sel_idx: Tensor,

@@ -20,11 +20,12 @@ loops (``engine``, routed by ``engine.resolve_engine``):
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, List, NamedTuple, Optional, Tuple, Union
+from dataclasses import dataclass, fields
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import robust
@@ -40,6 +41,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated import client as client_mod
 from repro_torch.federated import engine as engine_mod
 from repro_torch.scenarios import Scenario, get_scenario
+from repro_torch.telemetry import spans
+from repro_torch.telemetry.schema import RunContext
 
 Tensor = torch.Tensor
 ScenarioLike = Union[str, Scenario, None]
@@ -48,6 +51,36 @@ ScenarioLike = Union[str, Scenario, None]
 def resolve_scenario(scenario: ScenarioLike) -> Optional[Scenario]:
     """A registered scenario's name → the ``Scenario``; else as given."""
     return get_scenario(scenario) if isinstance(scenario, str) else scenario
+
+
+def config_echo(flcfg: FLConfig) -> dict:
+    """``run_start``'s config: every FLConfig field, in field order."""
+    return {f.name: getattr(flcfg, f.name) for f in fields(flcfg)}
+
+
+def run_context(telemetry: Any, *, engine_name: str, eng: engine_mod.Engine,
+                flcfg: FLConfig, topo: CloudTopology, method: str,
+                scenario: Optional[Scenario], seed: int,
+                malicious: np.ndarray,
+                run_id: Optional[str] = None) -> RunContext:
+    """The event factory of one run, described as the reference's
+    drivers describe it: the round's static slice from ``eng`` (the
+    hierarchy, the selected count, the exact wire payloads), the price
+    schedule and malice warmup from ``scenario``'s hooks; ``run_id``
+    defaults to ``"<method>-s<seed>"``."""
+    h = engine_mod.hooks_of(scenario)
+    return RunContext(
+        telemetry, engine=engine_name,
+        run_id=run_id if run_id is not None else f"{method}-s{seed}",
+        method=method, attack=flcfg.attack, seed=seed, topo=topo,
+        d_params=eng.d_params, hierarchical=eng.hier,
+        m_selected=eng.m_total, malicious=malicious,
+        client_payload=eng.client_payload, edge_payload=eng.edge_payload,
+        c_intra=flcfg.c_intra, c_cross=flcfg.c_cross,
+        price_multipliers=h.price_multipliers,
+        malice_warmup=h.malice_warmup,
+        scenario=scenario.name if scenario is not None else None,
+        trust_features=flcfg.trust_features)
 
 
 class HostDraws(NamedTuple):
@@ -70,7 +103,14 @@ class FLServer:
     run the combination, else the host loop), ``"jit"`` (the round
     engine; ``ValueError`` where it cannot), ``"host"`` (the host loop)
     or ``"shard"`` (not ported: ``NotImplementedError``); the loop
-    taken is ``engine_resolved``."""
+    taken is ``engine_resolved``.
+
+    ``telemetry`` — an optional recorder (``repro_torch.telemetry.
+    Telemetry`` or any object with ``emit(dict)``): ``run_start`` on
+    construction, a ``round`` event and a ``span`` per ``run_round``
+    (the reference's events, byte for byte given the same round
+    outputs); ``run_id`` defaults to ``"<method>-s<seed>"``. Without
+    one, a round reads nothing more from the device."""
     flcfg: FLConfig
     topo: CloudTopology
     data: FederatedData
@@ -79,6 +119,8 @@ class FLServer:
     scenario: ScenarioLike = None
     device: DeviceLike = "cuda"
     engine: str = "auto"
+    telemetry: Optional[Any] = None
+    run_id: Optional[str] = None
 
     def __post_init__(self):
         self.scenario = resolve_scenario(self.scenario)
@@ -130,6 +172,15 @@ class FLServer:
             self._eng_state = self._eng.init_state(self.seed)
             self.params = self._eng_state.params
             self.rep = ReputationState(ema=self._eng_state.rep_ema)
+        self._stepped = False             # the first round builds kernels
+        self._telemetry_ctx: Optional[RunContext] = None
+        if self.telemetry is not None:
+            self._telemetry_ctx = run_context(
+                self.telemetry, engine_name=self.engine_resolved,
+                eng=self._eng, flcfg=fl, topo=self.topo, method=self.method,
+                scenario=self.scenario, seed=self.seed,
+                malicious=self.malicious, run_id=self.run_id)
+            self._telemetry_ctx.run_start(config=config_echo(fl))
 
     def run_round(self, t: int,
                   draws: Union[engine_mod.RoundDraws, HostDraws, None] = None
@@ -137,10 +188,20 @@ class FLServer:
         """One round of the resolved loop (own-mode randomness unless
         ``draws`` is given: a ``RoundDraws`` for the engine, a
         ``HostDraws`` for the host loop), then byte-exact float64
-        accounting on the host at round t's price."""
-        if self.engine_resolved == "host":
-            return self._run_round_host(t, draws)
-        return self._run_round_engine(t, draws)
+        accounting on the host at round t's price. With telemetry, the
+        round runs inside a ``"round"`` span (phase ``"compile+execute"``
+        on the first round, which includes the kernels' build at first
+        use, ``"execute"`` after) and emits its ``round`` event."""
+        run = (self._run_round_host if self.engine_resolved == "host"
+               else self._run_round_engine)
+        ctx = self._telemetry_ctx
+        if ctx is None:
+            return run(t, draws)
+        phase = "execute" if self._stepped else "compile+execute"
+        with spans.span("round", ctx, phase=phase, t=t):
+            metrics = run(t, draws)
+        self._stepped = True
+        return metrics
 
     def _run_round_engine(self, t: int,
                           draws: Optional[engine_mod.RoundDraws]
@@ -155,21 +216,35 @@ class FLServer:
             delivered[None], t0=t)[0]
         return self._record(t, delivered, cost, intra_b, cross_b,
                             out.feat_weights if out.feat_weights.numel()
-                            else None)
+                            else None, out.params_l2)
 
     def _record(self, t: int, delivered: np.ndarray, cost: float,
                 intra_b: float, cross_b: float,
-                feat_weights: Optional[Tensor]) -> RoundMetrics:
+                feat_weights: Optional[Tensor],
+                params_l2: Optional[Tensor] = None) -> RoundMetrics:
+        """Book the round (float64 totals, ``history``) and, with
+        telemetry, emit its event: the reference's raw inputs — the
+        reputation as float32 numpy, ``params_l2`` (default: computed
+        here from ``self.params``) as ``float()`` of its float32 value —
+        and this round's explicit $ and bytes."""
         self.cum_cost += cost
         self.cum_intra_bytes += intra_b
         self.cum_cross_bytes += cross_b
         extra = {"intra_bytes": intra_b, "cross_bytes": cross_b}
+        fw = None
         if feat_weights is not None:              # trust_features="multi"
-            extra["feat_weights"] = feat_weights.cpu().numpy()
+            fw = extra["feat_weights"] = feat_weights.cpu().numpy()
         metrics = RoundMetrics(round=t, cost=cost, cum_cost=self.cum_cost,
                                selected=delivered,
                                reputation=self.rep.ema.cpu().numpy(),
                                extra=extra)
+        if self._telemetry_ctx is not None:
+            if params_l2 is None:
+                params_l2 = engine_mod.tree_l2(self.params)
+            self._telemetry_ctx.round(
+                t, delivered, metrics.reputation, float(params_l2),
+                cost=float(cost), intra_bytes=float(intra_b),
+                cross_bytes=float(cross_b), feat_weights=fw)
         self.history.append(metrics)
         return metrics
 
@@ -234,82 +309,96 @@ class FLServer:
 
     def _run_round_host(self, t: int, draws: Optional[HostDraws]
                         ) -> RoundMetrics:
+        """One host-loop round, its phases under the round engine's
+        profiler labels (``round.select`` ... ``round.account``)."""
         eng, fl, dev = self._eng, self.flcfg, self.device
         n = self.topo.n_clients
-        rng = np.random.default_rng(self.seed * 100003 + t)
-        sc = self.scenario
-        if sc is not None:
-            # environment mutation (e.g. egress pricing) BEFORE selection,
-            # so Eq. 10 and this round's $ see the same prices
-            sc.round_start(self, t, rng)
-        sel = self._select(rng)
-        if sc is not None:
-            # dropped clients neither train nor put bytes on the wire
-            sel = np.asarray(sc.delivered(self, t, rng, sel), bool)
-        sel_ix = np.nonzero(sel)[0]
-        malicious = (self.malicious if sc is None
-                     else np.asarray(sc.active_malicious(self, t)))
-        # the round's host masks go to the device here, before its first
-        # launch: a copy from pageable host memory waits for the stream
-        # to drain, which mid-round would stall the launches behind it
-        sel_idx = torch.as_tensor(sel_ix, device=dev)
-        on_dev = dict(
-            selected=torch.as_tensor(sel, device=dev),
-            malicious=torch.as_tensor(malicious[sel_ix], device=dev),
-            active=torch.as_tensor(np.bincount(
-                self.topo.cloud_of[sel], minlength=self.topo.n_clouds) > 0,
-                device=dev)[:, None])
-        if draws is None:
-            draws = self.draws(t)
-        draws = HostDraws(*(None if x is None else torch.as_tensor(x,
-                                                                   device=dev)
-                            for x in draws))
+        with record_function("round.select"):
+            rng = np.random.default_rng(self.seed * 100003 + t)
+            sc = self.scenario
+            if sc is not None:
+                # environment mutation (e.g. egress pricing) BEFORE
+                # selection, so Eq. 10 and this round's $ see the same
+                # prices
+                sc.round_start(self, t, rng)
+            sel = self._select(rng)
+            if sc is not None:
+                # dropped clients neither train nor put bytes on the wire
+                sel = np.asarray(sc.delivered(self, t, rng, sel), bool)
+            sel_ix = np.nonzero(sel)[0]
+            malicious = (self.malicious if sc is None
+                         else np.asarray(sc.active_malicious(self, t)))
+            # the round's host masks go to the device here, before its
+            # first launch: a copy from pageable host memory waits for the
+            # stream to drain, which mid-round would stall the launches
+            # behind it
+            sel_idx = torch.as_tensor(sel_ix, device=dev)
+            on_dev = dict(
+                selected=torch.as_tensor(sel, device=dev),
+                malicious=torch.as_tensor(malicious[sel_ix], device=dev),
+                active=torch.as_tensor(np.bincount(
+                    self.topo.cloud_of[sel], minlength=self.topo.n_clouds)
+                    > 0, device=dev)[:, None])
+            if draws is None:
+                draws = self.draws(t)
+            draws = HostDraws(*(None if x is None
+                                else torch.as_tensor(x, device=dev)
+                                for x in draws))
 
         # local training of the delivered clients only
-        cd = self._eng_data
-        flat_sel = engine_mod.ravel_rows(client_mod.local_train(
-            self.params, cd.client_x[sel_idx], cd.client_y[sel_idx],
-            draws.client_idx[sel_idx].long(), lr=fl.lr))        # (m, D)
+        with record_function("round.train"):
+            cd = self._eng_data
+            flat_sel = engine_mod.ravel_rows(client_mod.local_train(
+                self.params, cd.client_x[sel_idx], cd.client_y[sel_idx],
+                draws.client_idx[sel_idx].long(), lr=fl.lr))    # (m, D)
 
         # the update attack on the round's ACTIVE malicious clients
-        if UPDATE_ATTACKS[fl.attack] is not None:
-            noise = draws.attack_noise
-            if fl.attack in NOISY_ATTACKS and noise is None:
-                noise = eng.attack_noise(self.seed, t, len(sel_ix))
-            flat_sel = apply_update_attack(
-                fl.attack, flat_sel, on_dev["malicious"], noise,
-                sigma=fl.gaussian_sigma, scale=fl.attack_scale,
-                z=fl.attack_z)
+        with record_function("round.attack"):
+            if UPDATE_ATTACKS[fl.attack] is not None:
+                noise = draws.attack_noise
+                if fl.attack in NOISY_ATTACKS and noise is None:
+                    noise = eng.attack_noise(self.seed, t, len(sel_ix))
+                flat_sel = apply_update_attack(
+                    fl.attack, flat_sel, on_dev["malicious"], noise,
+                    sigma=fl.gaussian_sigma, scale=fl.attack_scale,
+                    z=fl.attack_z)
 
         # the client uplink wire, after the (sender-side) attack; QSGD
         # noise per sender by global client id
         if eng.client_wire_active:
-            if self._res_client is None:
-                self._res_client = torch.zeros(n, self.d_params, device=dev)
-            noise = None
-            if eng.client_wire_noise:
-                noise = (draws.client_noise[sel_idx]
-                         if draws.client_noise is not None
-                         else eng.client_noise(self.seed, t, sel_ix))
-            flat_sel = eng.client_wire(
-                flat_sel, self._res_client, sel_idx,
-                torch.ones(len(sel_ix), dtype=torch.bool, device=dev), noise)
+            with record_function("round.compress"):
+                if self._res_client is None:
+                    self._res_client = torch.zeros(n, self.d_params,
+                                                   device=dev)
+                noise = None
+                if eng.client_wire_noise:
+                    noise = (draws.client_noise[sel_idx]
+                             if draws.client_noise is not None
+                             else eng.client_noise(self.seed, t, sel_ix))
+                flat_sel = eng.client_wire(
+                    flat_sel, self._res_client, sel_idx,
+                    torch.ones(len(sel_ix), dtype=torch.bool, device=dev),
+                    noise)
 
-        update, hier = self._aggregate(flat_sel, sel_idx, on_dev, draws, t)
+        with record_function("round.aggregate"):
+            update, hier = self._aggregate(flat_sel, sel_idx, on_dev, draws,
+                                           t)
+            # w <- w - eta * g
+            delta = engine_mod.unflatten_like(update * fl.server_lr,
+                                              self.params)
+            self.params = {k: self.params[k] - delta[k] for k in self.params}
 
-        # w <- w - eta * g
-        delta = engine_mod.unflatten_like(update * fl.server_lr, self.params)
-        self.params = {k: self.params[k] - delta[k] for k in self.params}
-
-        # float64 accounting at THIS round's prices (a hook may swap them)
-        kw = dict(hierarchical=hier, client_payload=eng.client_payload,
-                  edge_payload=eng.edge_payload)
-        intra_b, cross_b = self.cost_model.round_bytes(
-            self.topo, sel, self.d_params, **kw)
-        cost = self.cost_model.round_cost(self.topo, sel, self.d_params,
-                                          **kw)
-        return self._record(t, sel, cost, intra_b, cross_b,
-                            self._feat_weights if hier else None)
+        with record_function("round.account"):
+            # float64 accounting at THIS round's prices (a hook may swap
+            # them)
+            kw = dict(hierarchical=hier, client_payload=eng.client_payload,
+                      edge_payload=eng.edge_payload)
+            intra_b, cross_b = self.cost_model.round_bytes(
+                self.topo, sel, self.d_params, **kw)
+            cost = self.cost_model.round_cost(self.topo, sel, self.d_params,
+                                              **kw)
+            return self._record(t, sel, cost, intra_b, cross_b,
+                                self._feat_weights if hier else None)
 
     def _aggregate(self, flat_sel: Tensor, sel_idx: Tensor, on_dev: dict,
                    draws: HostDraws, t: int) -> Tuple[Tensor, bool]:
@@ -365,3 +454,13 @@ class FLServer:
     def evaluate(self) -> float:
         return client_mod.accuracy(self.params, self.data.test_x,
                                    self.data.test_y)
+
+    # -- telemetry hooks (no-ops when no recorder is attached) ------------------
+    def record_eval(self, t: int, accuracy: float,
+                    loss: Optional[float] = None) -> None:
+        if self._telemetry_ctx is not None:
+            self._telemetry_ctx.eval(t, accuracy, loss)
+
+    def finish_telemetry(self) -> None:
+        if self._telemetry_ctx is not None:
+            self._telemetry_ctx.run_end()
