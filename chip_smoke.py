@@ -16,7 +16,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    none, and an odd count, phi, ts, reputation, norms, features,
    separability and weights within 1e-5, gbar and f2 exact, the median
    within 1e-6 relative; trust_score and trust_features are its
-   standalone modes), then
+   standalone modes; the standalone modes, weighted_agg and the QSGD
+   round trip also at the shard paths' 90 rows), then
    device times (CUDA graph replays between CUDA events, median of
    repeats) of the kernel's wrapper, the plain version and, where one
    PyTorch call computes the same function, that call (a yardstick the
@@ -35,7 +36,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    initial state and one set of draws — masks, bytes and $ exact,
    reputation and params (and, on the defense paths, the feature
    separability) within 1e-4 relative (1e-5 on the host-loop paths
-   without QSGD);
+   without QSGD); the shard paths on one rank holding both a gloo and
+   an NCCL group; then each shard path against the round engine's
+   ``Engine.step`` on the card at full width, ROUNDS rounds each from
+   the engine's state: masks, bytes and $ exact, reputation, params and
+   separability within 1e-4 under deterministic cuDNN (cuDNN's default
+   LocalTrain is not deterministic: its drift is printed);
    and the serve path in fp32 at
    the test configuration (recurrentgemma-2b's layout at d_model 128,
    8 layers, window 64): the prefill of two 96-token prompts on the card
@@ -76,6 +82,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``dropout``, which ``engine="auto"`` routes to the host loop (only
      it runs dropout under an order statistic); topk_mask once per
      round, every other kernel never;
+   * SHARD_HEADLINE and SHARD_DEFENSE: the headline's and the defense's
+     knobs on the mesh-sharded engine (``FLServer(engine="shard")``),
+     one rank on NCCL: all 90 clients train (masked), the standalone
+     trust_score once per round (and trust_features on SHARD_DEFENSE),
+     weighted_agg once, topk_mask once (SHARD_HEADLINE) or
+     stochastic_quantize twice (SHARD_DEFENSE), trust_stage never;
    every FL path: params finite; bytes and $ equal the cost model's for
    each delivered mask; then the test accuracy and rounds/s of each;
    * SERVE: ``repro_torch.launch.serve.serve`` at recurrentgemma-2b's
@@ -105,10 +117,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Prints one ``{"kernels": [...]}`` line (one entry per Pallas kernel,
 launches per path under ``launches_by_path``; the fused trust stage's
 launches count for trust_score on the Cost-TrustFL paths and for
-trust_features on the defense path, and those two entries give the
-time, error and bound of the launch counted: the stage, scalar for
-trust_score and multi for trust_features, with their standalone modes'
-under ``standalone_*``) and, last, the ``{"ok": true, "device": ...}``
+trust_features on the defense paths, and the standalone modes' own
+launches (the shard paths) too, apart under ``launches_standalone`` and
+``launches_fused``; those two entries give the time, error and bound of
+the stage, scalar for trust_score and multi for trust_features, with
+their standalone modes' under ``standalone_*`` and at the shard's
+shapes under ``shard``) and, last, the ``{"ok": true, "device": ...}``
 line. Exits non-zero without a CUDA device, and when
 ``src/repro_torch`` is not beside this script.
 
@@ -214,7 +228,18 @@ PATHS = {
     # median of the delivered rows, the flat wire top-k across clouds
     "dropout_median": (dict(TOPK_WIRE, aggregator="median"), "dropout",
                        "auto", _per_round(topk_mask=1)),
+    # the mesh-sharded engine at world size 1 (NCCL): every client trains
+    # (masked), the trust path's standalone modes over the 90 rows given
+    # the all-reduced gbar and median, one segmented weighted_agg whose
+    # partial sums are all-reduced; the client wire over the 90 rows
+    "shard_headline": (HEADLINE, None, "shard",
+                       _per_round(trust_score=1, weighted_agg=1,
+                                  topk_mask=1)),
+    "shard_defense": (DEFENSE, None, "shard",
+                      _per_round(trust_score=1, trust_features=1,
+                                 weighted_agg=1, stochastic_quantize=2)),
 }
+SHARD_PATHS = ("shard_headline", "shard_defense")
 # the telemetry phase's paths (run_simulation with a JSONL sink), and the
 # steady rounds a turn of its telemetry off/on rounds/s comparison
 TELEMETRY_PATHS = ("headline", "defense", "host_headline")
@@ -530,6 +555,7 @@ def kernel_phase(torch, ops, dev):
         shape=f"G ({m}, {L}) f32, refs ({k}, {L})")
 
     rec["trust_stage"] = stage_record(torch, ops, dev, gen)
+    shard_records(torch, ops, dev, gen, rec)
 
     # linear_scan: one serving prefill's (1, 4096, 2560) per "R" layer;
     # a ragged (3, 1000, 130) (T not a multiple of a cluster's steps, D
@@ -571,6 +597,75 @@ def kernel_phase(torch, ops, dev):
         # the scan's traffic reaches on this card, below the data sheet's
         add_ms_cold=time_cold_ms(torch, torch.add, sets[torch.bfloat16]))
     return rec
+
+
+def shard_records(torch, ops, dev, gen, rec, n=90, k=3, L=1290,
+                  D=545_098) -> None:
+    """The kernels at the shard paths' shapes (world size 1: one rank's
+    90 rows, every client trained and masked), each against its plain
+    version and timed, into ``rec[name]["shard"]``: the standalone
+    ``trust_score`` and ``trust_features`` modes over (90, 1290) given
+    gbar and the median, ``weighted_agg`` (its rows' kernel) over (90,
+    545098) in 3 segments, and the client wire's ``stochastic_quantize``
+    round trip over (90, 545098); a third of the rows delivering, the
+    others zero with w = 0, as on the path."""
+    cloud = torch.arange(k, device=dev).repeat_interleave(n // k)
+    w = (torch.rand(n, generator=gen, device=dev) < 1 / 3).float()
+    g = torch.randn(n, L, generator=gen, device=dev) * w[:, None]
+    refs = torch.randn(k, L, generator=gen, device=dev)
+    ones = torch.ones(n, device=dev)
+    gbar = (w @ g) / w.sum()
+    norms = torch.linalg.vector_norm(g, dim=1)
+    med = torch.nanquantile(torch.where(w > 0, norms,
+                                        torch.full_like(norms, float("nan"))),
+                            0.5)
+
+    def entry(fn, plain, tol, nbytes, flops, library=None, shape=""):
+        got, want = fn(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            check(close(torch, a, b, tol) if tol else torch.equal(a, b),
+                  f"{shape}: max err {max_err(torch, a, b)} > {tol}")
+        b_ms, b_by = bound(nbytes, flops)
+        return dict(max_abs_err=max(max_err(torch, a, b)
+                                    for a, b in zip(got, want)),
+                    ms=time_ms(torch, fn), call_ms=call_ms(torch, fn),
+                    plain_ms=time_ms(torch, plain), bound_ms=b_ms,
+                    bound_by=b_by, library_ms=(time_ms(torch, library)
+                                               if library else None),
+                    shape=shape)
+
+    rec["trust_score"]["shard"] = entry(
+        lambda: ops.trust_score(g, gbar, refs, ones, ref_idx=cloud),
+        lambda: ops.trust_score_plain(g, gbar, refs, ones, ref_idx=cloud),
+        1e-5, 4 * (n * L + L + k * L + n + 3 * n) + 8 * n, 10 * n * L,
+        shape=f"G ({n}, {L}) f32, refs ({k}, {L}), rep 1")
+    rec["trust_features"]["shard"] = entry(
+        lambda: ops.trust_features(g, refs, gbar, med, w, ref_idx=cloud),
+        lambda: ops.trust_features_plain(g, refs, gbar, med, w,
+                                         ref_idx=cloud),
+        1e-5, 4 * (n * L + k * L + L + 1 + n + 4 * n) + 8 * n, 8 * n * L,
+        shape=f"G ({n}, {L}) f32, refs ({k}, {L})")
+    big = torch.randn(n, D, generator=gen, device=dev) * w[:, None]
+    wt = torch.rand(n, generator=gen, device=dev) * w
+    seg = cloud.to(torch.int32)
+    w_mat = torch.zeros(k, n, device=dev)
+    w_mat[cloud, torch.arange(n, device=dev)] = wt
+    rec["weighted_agg"]["shard"] = entry(
+        lambda: ops.weighted_agg_rows(big, wt, seg, k),
+        lambda: ops.weighted_agg_rows_plain(big, wt, seg, k), 1e-5,
+        4 * (n * D + 2 * n + k * D), 2 * n * D,
+        library=lambda: torch.mm(w_mat, big),
+        shape=f"G ({n}, {D}) f32 -> ({k}, {D}), weights formed outside")
+    u = torch.rand(n, D, generator=gen, device=dev)
+    scale = torch.amax(big.abs(), dim=1)
+    rec["stochastic_quantize"]["shard"] = entry(
+        lambda: ops.quantize_roundtrip(big, scale, u, levels=15),
+        lambda: ops.quantize_roundtrip_plain(big, scale, u, 15), None,
+        4 * (4 * n * D + n), 11 * n * D,
+        shape=f"y ({n}, {D}) f32, levels 15, fused round trip (the "
+              "client wire over every row)")
 
 
 def stage_inputs(torch, gen, dev, m=30, k=3, n=90, d=545_098,
@@ -705,6 +800,14 @@ def scan_inputs(torch, gen, dev):
     return sets
 
 
+def end_group() -> None:
+    """End the default process group a shard phase started, so that later
+    phases run as before."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def state_to(state, dev):
     """A RoundState with every tensor moved to ``dev``."""
     return state._replace(
@@ -735,7 +838,7 @@ def agreement_phase(torch, dev, path: str):
     from repro_torch.scenarios import get_scenario
 
     knobs, scenario, engine, _ = PATHS[path]
-    if engine != "jit":
+    if engine not in ("jit", "shard"):
         return host_agreement_phase(torch, dev, path)
     scenario = get_scenario(scenario) if scenario else None
     fl = FLConfig(**SMALL, **knobs)
@@ -743,17 +846,28 @@ def agreement_phase(torch, dev, path: str):
         fl = scenario.apply(fl)
     topo = make_topology(fl)
     data = make_data(fl, n_samples=600, samples_per_client=16)
-    static = engine_mod.static_from(fl, topo, fl.aggregator, scenario)
     cpu = torch.device("cpu")
-    engs = {d: engine_mod.Engine(static, d) for d in (cpu, dev)}
-    cds = {d: engine_mod.make_client_data(fl, topo, data, 0, device=d)
-           for d in engs}
+    full = {d: engine_mod.make_client_data(fl, topo, data, 0, device=d)
+            for d in (cpu, dev)}
+    if engine == "shard":
+        # one rank holding the card's (NCCL) and the CPU's (gloo) groups
+        from repro_torch.federated import sharded
+        sharded.ensure_group(dev)
+        engs = {d: sharded.engine_for(fl, topo, data, fl.aggregator,
+                                      scenario, device=d) for d in full}
+        cds = {d: eng.stage_data(full[d]) for d, eng in engs.items()}
+        draw_eng = engs[cpu].eng
+    else:
+        static = engine_mod.static_from(fl, topo, fl.aggregator, scenario)
+        engs = {d: engine_mod.Engine(static, d) for d in full}
+        cds = full
+        draw_eng = engs[cpu]
     s_cpu = engs[cpu].init_state(0)
     states = {cpu: s_cpu, dev: state_to(s_cpu, dev)}
 
     worst = {"rep": 0.0, "params": 0.0, "feat_sep": 0.0}
     for t in range(2):
-        draws = engs[cpu].draws(0, t, cds[cpu], full_noise=True)
+        draws = draw_eng.draws(0, t, full[cpu], full_noise=True)
         outs = {}
         for d, eng in engs.items():
             states[d], outs[d] = eng.step(states[d], cds[d], t, draws)
@@ -772,8 +886,68 @@ def agreement_phase(torch, dev, path: str):
         worst["params"] = max(worst["params"], rel_err(
             torch, flat_params(torch, states[dev].params),
             flat_params(torch, states[cpu].params)))
+    end_group()
     check(max(worst.values()) <= 1e-4,
           f"{path}: card vs CPU drift {worst} > 1e-4")
+    return worst
+
+
+def shard_engine_phase(torch, dev, path: str):
+    """The sharded engine (``path``'s, world size 1 on NCCL) against the
+    round engine's ``Engine.step`` on the card at full width, ``ROUNDS``
+    rounds, each from the round engine's state of the round before and on
+    one set of own-mode draws (the wire noise materialized), under
+    deterministic cuDNN (its default algorithms are not deterministic, so
+    two LocalTrains of one client differ): masks and float64 bytes and $
+    exact; reputation, params and separability within 1e-4 relative.
+    Returns the worst drifts (the residuals' too, unchecked)."""
+    import numpy as np
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.federated import engine as engine_mod
+    from repro_torch.federated import sharded
+    from repro_torch.federated.simulation import make_data, make_topology
+
+    knobs, _, engine, _ = PATHS[path]
+    check(engine == "shard", f"{path} is not a shard path")
+    fl = FLConfig(**knobs)
+    topo = make_topology(fl)
+    data = make_data(fl)
+    sharded.ensure_group(dev)
+    eng = engine_mod.Engine(engine_mod.static_from(
+        fl, topo, fl.aggregator, input_shape=tuple(data.client_x.shape[2:]),
+        n_classes=data.n_classes), dev)
+    shard = sharded.engine_for(fl, topo, data, fl.aggregator, device=dev)
+    full = engine_mod.make_client_data(fl, topo, data, 0, device=dev)
+    cd = shard.stage_data(full)
+    worst = {k: 0.0 for k in ("rep", "params", "feat_sep", "res_client",
+                              "res_edge")}
+    state = eng.init_state(0)
+    with deterministic_cudnn(torch):
+        for t in range(ROUNDS):
+            draws = eng.draws(0, t, full, full_noise=True)
+            # the shard first: Engine.step updates res_client in place
+            b, ob = shard.step(state, cd, t, draws)
+            state, oa = eng.step(state, full, t, draws)
+            da, db = oa.delivered.cpu().numpy(), ob.delivered.cpu().numpy()
+            check(np.array_equal(da, db), f"{path} round {t}: masks differ "
+                  "from the round engine's")
+            check(np.array_equal(eng.host_round_accounting(da[None], t0=t),
+                                 shard.host_round_accounting(db[None], t0=t)),
+                  f"{path} round {t}: bytes/$ differ from the round "
+                  "engine's")
+            for name, x, y in (
+                    ("rep", b.rep_ema, state.rep_ema),
+                    ("params", flat_params(torch, b.params),
+                     flat_params(torch, state.params)),
+                    ("feat_sep", b.feat_sep, state.feat_sep),
+                    ("res_client", b.res_client, state.res_client),
+                    ("res_edge", b.res_edge, state.res_edge)):
+                if y.numel():
+                    worst[name] = max(worst[name], rel_err(torch, x, y))
+    end_group()
+    checked = {k: worst[k] for k in ("rep", "params", "feat_sep")}
+    check(max(checked.values()) <= 1e-4, f"{path}: shard vs round engine "
+          f"drift {checked} > 1e-4 under deterministic cuDNN")
     return worst
 
 
@@ -989,7 +1163,8 @@ def main_path_phase(torch, ops, dev, path: str):
                       scenario=scenario, device=dev, engine=engine)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    check(server.engine_resolved == ("jit" if engine == "jit" else "host"),
+    check(server.engine_resolved == (engine if engine in ("jit", "shard")
+                                     else "host"),
           f"{path}: engine={engine!r} resolved to {server.engine_resolved}")
     d = server.d_params
     check(d == 545_098, f"D = {d}, expected the paper CNN's 545,098")
@@ -1043,6 +1218,7 @@ def main_path_phase(torch, ops, dev, path: str):
         check(bool(torch.isfinite(x).all()), f"{path}: {name} not finite")
     acc = server.evaluate()
     check(0.0 <= acc <= 1.0, f"{path}: accuracy {acc}")
+    server.close()
     return counts, dict(engine=server.engine_resolved, setup_s=setup_s,
                         round_s=round_s,
                         rounds_per_s=ROUNDS / sum(round_s),
@@ -1443,7 +1619,9 @@ def profile_phase(torch, dev, out, path: str, rounds: int = 2):
     def run():
         for t in range(2, 2 + rounds):
             server.run_round(t)
-    return _trace(torch, out, path, run, rounds, "round")
+    rec = _trace(torch, out, path, run, rounds, "round")
+    server.close()
+    return rec
 
 
 def trace_labels_phase(torch, dev, work: Path):
@@ -1546,6 +1724,11 @@ def main() -> int:
         print(f"kernel {name}: {r}", flush=True)
     worst = {path: agreement_phase(torch, dev, path) for path in PATHS}
     print(f"agreement card vs CPU over 2 small rounds: {worst}", flush=True)
+    shard_vs_engine = {path: shard_engine_phase(torch, dev, path)
+                       for path in SHARD_PATHS}
+    print(f"shard vs round engine on the card, full width, {ROUNDS} rounds "
+          f"each from the engine's state, deterministic cuDNN: "
+          f"{shard_vs_engine}", flush=True)
     worst["serve"] = serve_agreement_phase(torch, ops, dev)
     print(f"agreement card vs CPU, serve prefill + 4 decode steps (fp32, "
           f"test configuration): {worst['serve']}", flush=True)
@@ -1610,18 +1793,24 @@ def main() -> int:
             **{key: rec[n][key] for key in keys},
             library_ms=rec[n]["library_ms"])
         if n in FUSED_INTO_STAGE:
+            # the standalone mode's own launches (the shard paths) apart
+            # from the fused stage's
+            entry["launches_standalone"] = sum(c[n] for c in counts.values())
+            entry["launches_fused"] = entry["launches"] - entry[
+                "launches_standalone"]
             tag = "_multi" if n == "trust_features" else ""
             entry.update({f"standalone_{key}": entry[key] for key in keys})
             entry.update({key: rec["trust_stage"][key + tag] for key in keys})
         kernels.append(entry)
     for k in kernels:       # the cold-L2 time, the flat path's shape
-        for extra in ("ms_cold", "flat", "row_threshold_ms"):
+        for extra in ("ms_cold", "flat", "row_threshold_ms", "shard"):
             if extra in rec[k["name"]]:
                 k[extra] = rec[k["name"]][extra]
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, kernels=rec, launches=counts, agreement=worst,
-                 main_paths=main, telemetry=tel), indent=1, default=float))
+                 shard_vs_engine=shard_vs_engine, main_paths=main,
+                 telemetry=tel), indent=1, default=float))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

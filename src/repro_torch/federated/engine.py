@@ -41,8 +41,10 @@ from the reference's key schedule.
 The host round loop (``FLServer(engine="host")``) runs what
 :func:`supports` leaves out — dropout under an order statistic, host
 hooks without ``jit_hooks`` — with an :class:`Engine` of its config
-without the scenario for its wires, payloads and own-mode streams;
-:func:`resolve_engine` routes between the two.
+without the scenario for its wires, payloads and own-mode streams; the
+mesh-sharded engine (``federated.sharded``, ``engine="shard"``) spreads
+the clients over the ranks of a process group; :func:`resolve_engine`
+routes between the three.
 """
 from __future__ import annotations
 
@@ -228,21 +230,30 @@ def supports(flcfg: FLConfig, method: str,
 
 
 def resolve_engine(engine: str, flcfg: FLConfig, topo: CloudTopology,
-                   method: str, scenario: Optional[Scenario] = None) -> str:
-    """Route a (config, method, scenario) onto a round loop: ``"jit"``
-    (the round engine) or ``"host"`` (the host round loop), as the
-    reference routes on one device. ``"auto"`` takes the engine when
-    :func:`supports` says so, else the host loop; ``"jit"`` on a
-    combination only the host loop runs raises ``ValueError``;
-    ``"shard"`` (the reference's mesh-sharded engine) raises
-    ``NotImplementedError``. ``topo`` is the reference's argument for
-    its sharded branch; no route here reads it."""
+                   method: str, scenario: Optional[Scenario] = None, *,
+                   n_devices: Optional[int] = None) -> str:
+    """Route a (config, method, scenario) onto a round loop, as the
+    reference routes: ``"shard"`` (the mesh-sharded engine,
+    ``federated.sharded``), ``"jit"`` (the round engine) or ``"host"``
+    (the host round loop). ``n_devices``: the ranks of the process group
+    (default: the default group's size, 1 when none is initialized).
+
+    ``"auto"`` takes the sharded engine only with more than one rank, a
+    dense round (2·clients_per_round ≥ N) and a combination it supports;
+    then the round engine where :func:`supports` says so, else the host
+    loop. ``"shard"`` or ``"jit"`` on a combination they cannot run
+    raises ``ValueError`` with the reason."""
+    from repro_torch.federated import sharded as sharded_mod
+    if n_devices is None:
+        n_devices = sharded_mod.group_size()
     if engine == "host":
         return "host"
     if engine == "shard":
-        raise NotImplementedError(
-            "engine='shard': the mesh-sharded round engine is not ported "
-            "yet (ROADMAP queue A item 6)")
+        reason = sharded_mod.shard_unsupported_reason(
+            flcfg, topo, method, scenario, n_devices=n_devices)
+        if reason is not None:
+            raise ValueError(f"engine='shard' but {reason}")
+        return "shard"
     if engine == "jit":
         if not supports(flcfg, method, scenario):
             raise ValueError(
@@ -253,6 +264,12 @@ def resolve_engine(engine: str, flcfg: FLConfig, topo: CloudTopology,
     if engine != "auto":
         raise ValueError(f"unknown engine {engine!r}; expected "
                          "'auto' | 'shard' | 'jit' | 'host'")
+    # the sharded engine trains every client (masked), so "auto" prefers
+    # it only where few of the trained rows are masked away
+    dense = 2 * flcfg.clients_per_round >= topo.n_clients
+    if (n_devices > 1 and dense and sharded_mod.shard_unsupported_reason(
+            flcfg, topo, method, scenario, n_devices=n_devices) is None):
+        return "shard"
     return "jit" if supports(flcfg, method, scenario) else "host"
 
 
@@ -506,19 +523,23 @@ class Engine:
         return {k: params[k] for k in sorted(params)}
 
     def init_state(self, seed: int,
-                   params: Optional[Dict[str, Tensor]] = None) -> RoundState:
+                   params: Optional[Dict[str, Tensor]] = None,
+                   client_rows: Optional[int] = None) -> RoundState:
         """Round-zero state: ``params`` (default: :meth:`init_params`),
-        uniform reputation, zero residuals on the lossy wires, zero
-        feature separability under ``multi``."""
+        uniform reputation, zero residuals on the lossy wires (the client
+        wire's for ``client_rows`` clients, default all N), zero feature
+        separability under ``multi``."""
         dev = self.device
         if params is None:
             params = self.init_params(seed)
+        if client_rows is None:
+            client_rows = self.n
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         empty = torch.zeros(0, device=dev)
         return RoundState(
             params={k: params[k] for k in sorted(params)},
             rep_ema=ReputationState.init(self.n, device=dev).ema,
-            res_client=(torch.zeros(self.n, self.d_params, device=dev)
+            res_client=(torch.zeros(client_rows, self.d_params, device=dev)
                         if self.client_wire_active else empty),
             res_edge=(torch.zeros(self.k, self.d_params, device=dev)
                       if self.edge_wire_active else empty),

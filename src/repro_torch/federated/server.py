@@ -1,11 +1,15 @@
 """Server-side orchestration of Algorithm 1: ``FLServer``, one server per
 method (Cost-TrustFL or a flat baseline) with an optional adversary /
-environment scenario (``repro_torch.scenarios``), over one of two round
+environment scenario (``repro_torch.scenarios``), over one of three round
 loops (``engine``, routed by ``engine.resolve_engine``):
 
 * ``"jit"`` — the round engine (``repro_torch.federated.engine``): each
   ``run_round`` is one ``Engine.step`` on a ``RoundState``, then float64
   accounting on the host from the delivered mask;
+* ``"shard"`` — the mesh-sharded engine (``federated.sharded``): the same
+  per-round loop over ``ShardEngine.step``, this rank's client block of a
+  ``torch.distributed`` group (a one-rank group is started when none is
+  initialized);
 * ``"host"`` — the host round loop, the reference's protocol
   implementation (``repro/federated/server.py:_run_round_host``) and the
   only loop for scenarios with host hooks and no ``jit_hooks`` and for
@@ -25,6 +29,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.configs.base import FLConfig
@@ -58,7 +63,7 @@ def config_echo(flcfg: FLConfig) -> dict:
     return {f.name: getattr(flcfg, f.name) for f in fields(flcfg)}
 
 
-def run_context(telemetry: Any, *, engine_name: str, eng: engine_mod.Engine,
+def run_context(telemetry: Any, *, engine_name: str, eng: Any,
                 flcfg: FLConfig, topo: CloudTopology, method: str,
                 scenario: Optional[Scenario], seed: int,
                 malicious: np.ndarray,
@@ -66,7 +71,8 @@ def run_context(telemetry: Any, *, engine_name: str, eng: engine_mod.Engine,
     """The event factory of one run, described as the reference's
     drivers describe it: the round's static slice from ``eng`` (the
     hierarchy, the selected count, the exact wire payloads), the price
-    schedule and malice warmup from ``scenario``'s hooks; ``run_id``
+    schedule and malice warmup from ``scenario``'s hooks (``eng``: an
+    ``Engine`` or a ``ShardEngine``); ``run_id``
     defaults to ``"<method>-s<seed>"``."""
     h = engine_mod.hooks_of(scenario)
     return RunContext(
@@ -100,10 +106,15 @@ class FLServer:
     unless ``device="cpu"`` is passed). ``scenario`` — a ``Scenario`` or a
     registered name — has its overrides applied to ``flcfg``
     (idempotent). ``engine``: ``"auto"`` (the round engine where it can
-    run the combination, else the host loop), ``"jit"`` (the round
-    engine; ``ValueError`` where it cannot), ``"host"`` (the host loop)
-    or ``"shard"`` (not ported: ``NotImplementedError``); the loop
-    taken is ``engine_resolved``.
+    run the combination, else the host loop; the sharded engine only
+    with more than one rank at dense participation), ``"jit"`` (the
+    round engine; ``ValueError`` where it cannot), ``"host"`` (the host
+    loop) or ``"shard"`` (the mesh-sharded engine over the default
+    process group, started at one rank when none is initialized;
+    ``ValueError`` with the reason where it cannot); the loop taken is
+    ``engine_resolved``. Under ``"shard"`` the telemetry is recorded by
+    the group's rank 0, and a group the server started is ended by
+    :meth:`close` (or on leaving ``with FLServer(...)``).
 
     ``telemetry`` — an optional recorder (``repro_torch.telemetry.
     Telemetry`` or any object with ``emit(dict)``): ``run_start`` on
@@ -130,21 +141,36 @@ class FLServer:
         self.engine_resolved = engine_mod.resolve_engine(
             self.engine, fl, self.topo, self.method, self.scenario)
         host = self.engine_resolved == "host"
-        shape = tuple(self.data.client_x.shape[2:])
-        # the host loop applies the scenario itself (its hooks), so its
-        # Engine — the wires, the payloads and the own-mode streams —
-        # is built without one
-        static = engine_mod.static_from(
-            fl, self.topo, self.method, None if host else self.scenario,
-            input_shape=shape, n_classes=self.data.n_classes)
+        shard = self.engine_resolved == "shard"
         self.device = resolve_device(self.device)
-        self._eng = engine_mod.Engine(static, self.device)
+        self._own_group = False
+        if shard:
+            from repro_torch.federated import sharded as sharded_mod
+            self._own_group = sharded_mod.ensure_group(self.device)
+            try:
+                self._eng = sharded_mod.engine_for(
+                    fl, self.topo, self.data, self.method, self.scenario,
+                    device=self.device)
+            except BaseException:
+                self.close()
+                raise
+        else:
+            # the host loop applies the scenario itself (its hooks), so
+            # its Engine — the wires, the payloads and the own-mode
+            # streams — is built without one
+            static = engine_mod.static_from(
+                fl, self.topo, self.method, None if host else self.scenario,
+                input_shape=tuple(self.data.client_x.shape[2:]),
+                n_classes=self.data.n_classes)
+            self._eng = engine_mod.Engine(static, self.device)
         self.d_params = self._eng.d_params
         self.malicious = engine_mod.draw_malicious(fl, self.topo.n_clients,
                                                    self.seed)
         self._eng_data = engine_mod.make_client_data(
             fl, self.topo, self.data, self.seed, device=self.device,
             malicious=self.malicious)
+        if shard:
+            self._eng_data = self._eng.stage_data(self._eng_data)
         # Eq. 10 sees the hierarchical marginal cost; a host hook may swap
         # both for the round (price surge)
         self.cost_model = CostModel(fl.c_intra, fl.c_cross)
@@ -174,7 +200,8 @@ class FLServer:
             self.rep = ReputationState(ema=self._eng_state.rep_ema)
         self._stepped = False             # the first round builds kernels
         self._telemetry_ctx: Optional[RunContext] = None
-        if self.telemetry is not None:
+        if self.telemetry is not None and (not shard
+                                           or self._eng.rank == 0):
             self._telemetry_ctx = run_context(
                 self.telemetry, engine_name=self.engine_resolved,
                 eng=self._eng, flcfg=fl, topo=self.topo, method=self.method,
@@ -464,3 +491,18 @@ class FLServer:
     def finish_telemetry(self) -> None:
         if self._telemetry_ctx is not None:
             self._telemetry_ctx.run_end()
+
+    def close(self) -> None:
+        """End the one-rank process group this server started under
+        ``engine="shard"`` (a group the caller started is left alone);
+        idempotent, and a no-op for the other round loops. The server
+        is also a context manager that closes on exit."""
+        if self._own_group:
+            self._own_group = False
+            dist.destroy_process_group()
+
+    def __enter__(self) -> "FLServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,8 +1,9 @@
 """End-to-end simulation harness (3 clouds x 30 clients, Dirichlet
 non-IID data) driving the port's ``FLServer``: one run
 (``run_simulation``), every method on one dataset and scenario
-(``compare_methods``), or one configuration over several seeds
-(``run_simulation_batch``: ``Engine.run`` per seed)."""
+(``compare_methods``), one configuration over several seeds
+(``run_simulation_batch``: ``Engine.run`` per seed), or one run on the
+mesh-sharded engine (``run_simulation_sharded``: ``ShardEngine.run``)."""
 from __future__ import annotations
 
 import time
@@ -11,6 +12,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.fl_types import CloudTopology
@@ -58,9 +60,8 @@ def make_data(flcfg: FLConfig, dataset: str = "cifar10", seed: int = 0,
                            ref_samples=flcfg.ref_samples, seed=seed)
 
 
-def _engine_context(telemetry: Any, *, engine_name: str,
-                    eng: engine_mod.Engine, flcfg: FLConfig,
-                    topo: CloudTopology, method: str,
+def _engine_context(telemetry: Any, *, engine_name: str, eng: Any,
+                    flcfg: FLConfig, topo: CloudTopology, method: str,
                     scenario: Optional[Scenario], seed: int,
                     malicious: np.ndarray, rounds: int) -> RunContext:
     """RunContext of a round-engine run driven outside ``FLServer``, with
@@ -95,7 +96,8 @@ def run_simulation(flcfg: FLConfig, *, method: Optional[str] = None,
     ``scenario`` — a ``repro_torch.scenarios`` registry name or
     ``Scenario`` — has its FLConfig overrides applied first. ``method``
     defaults to ``flcfg.aggregator``. ``engine`` is forwarded to
-    ``FLServer`` (the round loop: ``"auto"``, ``"jit"``, ``"host"``).
+    ``FLServer`` (the round loop: ``"auto"``, ``"jit"``, ``"host"``,
+    ``"shard"``; the server is closed after the run).
     ``telemetry`` — an optional ``repro_torch.telemetry.Telemetry``
     recorder: the server emits run_start / per-round / span events, this
     harness adds eval events and the closing run_end."""
@@ -107,21 +109,21 @@ def run_simulation(flcfg: FLConfig, *, method: Optional[str] = None,
     rounds = rounds if rounds is not None else flcfg.rounds
     topo = make_topology(flcfg)
     data = data if data is not None else make_data(flcfg, dataset, seed)
-    server = FLServer(flcfg, topo, data, method=method, seed=seed,
-                      scenario=scenario, device=device, engine=engine,
-                      telemetry=telemetry)
     accs, ticks = [], []
-    for t in range(rounds):
-        server.run_round(t)
-        if (t + 1) % eval_every == 0 or t == rounds - 1:
-            acc = server.evaluate()
-            accs.append(acc)
-            ticks.append(t + 1)
-            server.record_eval(t, acc)
-            if verbose:
-                print(f"[{method}/{flcfg.attack}] round {t+1:4d} "
-                      f"acc={acc:.4f} cum_cost=${server.cum_cost:.4f}")
-    server.finish_telemetry()
+    with FLServer(flcfg, topo, data, method=method, seed=seed,
+                  scenario=scenario, device=device, engine=engine,
+                  telemetry=telemetry) as server:
+        for t in range(rounds):
+            server.run_round(t)
+            if (t + 1) % eval_every == 0 or t == rounds - 1:
+                acc = server.evaluate()
+                accs.append(acc)
+                ticks.append(t + 1)
+                server.record_eval(t, acc)
+                if verbose:
+                    print(f"[{method}/{flcfg.attack}] round {t+1:4d} "
+                          f"acc={acc:.4f} cum_cost=${server.cum_cost:.4f}")
+        server.finish_telemetry()
     return SimResult(method=method, attack=flcfg.attack, accuracy=accs,
                      rounds=ticks,
                      final_accuracy=accs[-1] if accs else None,
@@ -262,6 +264,91 @@ def run_simulation_batch(flcfg: FLConfig, *, seeds: Sequence[int],
             intra_bytes=ib, cross_bytes=cb,
             scenario=scenario.name if scenario is not None else None))
     return results
+
+
+def run_simulation_sharded(flcfg: FLConfig, *,
+                           method: Optional[str] = None,
+                           scenario: ScenarioLike = None,
+                           dataset: str = "cifar10",
+                           rounds: Optional[int] = None, seed: int = 0,
+                           data: Optional[FederatedData] = None,
+                           n_devices: Optional[int] = None,
+                           device: DeviceLike = "cuda",
+                           telemetry: Any = None) -> SimResult:
+    """One simulation on the mesh-sharded engine (``federated.sharded``)
+    on ``device`` (default ``"cuda"``; raises without a GPU unless
+    ``device="cpu"`` is passed): this rank's client block of the default
+    process group (a one-rank group is started, and ended after the run,
+    when none is initialized; ``n_devices``, when given, must be its
+    size), Eq. 5–13 as a two-stage intra-cloud/cross-cloud reduction, the
+    rounds one ``ShardEngine.run``.
+
+    Semantics match ``run_simulation`` on the round engine (masks, bytes
+    and $ exactly; reputation and params to ~1e-4), except that accuracy
+    is evaluated once, after the final round, and $ and bytes are the
+    float64 accounting of the delivered masks. Raises ``ValueError`` with
+    the reason for what the sharded engine refuses (matrix-shaped
+    attacks, host-hook scenarios, dropout under an order statistic,
+    populations that do not tile the ranks). ``telemetry`` is recorded
+    by rank 0, its round events replayed from the stacked outputs after
+    the run (``engine="shard"``)."""
+    from repro_torch.federated import sharded as sharded_mod
+
+    scenario = resolve_scenario(scenario)
+    if scenario is not None:
+        flcfg = scenario.apply(flcfg)
+    device = resolve_device(device)
+    method = flcfg.aggregator if method is None else method
+    rounds = rounds if rounds is not None else flcfg.rounds
+    topo = make_topology(flcfg)
+    data = data if data is not None else make_data(flcfg, dataset, seed)
+    started = sharded_mod.ensure_group(device)
+    try:
+        eng = sharded_mod.engine_for(flcfg, topo, data, method, scenario,
+                                     device=device, n_devices=n_devices)
+        malicious = engine_mod.draw_malicious(flcfg, topo.n_clients, seed)
+        dev = eng.stage_data(engine_mod.make_client_data(
+            flcfg, topo, data, seed, device=device, malicious=malicious))
+        state = eng.init_state(seed)
+        ctx = (None if telemetry is None or eng.rank != 0 else
+               _engine_context(telemetry, engine_name="shard", eng=eng,
+                               flcfg=flcfg, topo=topo, method=method,
+                               scenario=scenario, seed=seed,
+                               malicious=malicious, rounds=rounds))
+        name = scenario.name if scenario is not None else None
+        if rounds == 0:
+            if ctx is not None:
+                ctx.run_end()
+            return SimResult(method=method, attack=flcfg.attack,
+                             accuracy=[], rounds=[], final_accuracy=None,
+                             total_cost=0.0,
+                             reputation=state.rep_ema.cpu().numpy(),
+                             malicious=malicious, scenario=name)
+
+        t0 = time.perf_counter()
+        fin, outs = eng.run(state, dev, rounds)
+        acc = client_mod.accuracy(fin.params, data.test_x, data.test_y)
+        out = engine_mod.RoundOut(*(x.cpu().numpy() for x in outs))
+        if ctx is not None:
+            ctx.span("engine.run", time.perf_counter() - t0,
+                     phase="compile+execute")
+            _replay_rounds(ctx, out.delivered, out.rep, out.params_l2,
+                           out.feat_weights if out.feat_weights.shape[-1]
+                           else None)
+            ctx.eval(rounds - 1, float(acc))
+            ctx.run_end()
+        # byte-exact float64 accounting from the delivered masks
+        rows = eng.host_round_accounting(out.delivered)
+        return SimResult(
+            method=method, attack=flcfg.attack, accuracy=[acc],
+            rounds=[rounds], final_accuracy=acc,
+            total_cost=float(rows[:, 0].sum()),
+            reputation=np.array(out.rep[-1]), malicious=malicious,
+            intra_bytes=float(rows[:, 1].sum()),
+            cross_bytes=float(rows[:, 2].sum()), scenario=name)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def compare_methods(flcfg: FLConfig, methods: List[str], *,

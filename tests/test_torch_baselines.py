@@ -20,6 +20,7 @@ import torch
 from _torch_replay import SMALL, SMALL_DATA, replay
 from repro.core import robust as jrobust
 from repro.federated import engine as jengine
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.compress import TopKCodec
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import robust

@@ -12,6 +12,7 @@ import torch
 
 from repro.checkpoint import restore_checkpoint as jrestore
 from repro.checkpoint import save_checkpoint as jsave
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 
 

@@ -30,6 +30,7 @@ from repro.core import features as jfeatures
 from repro.federated import engine as jengine
 from repro.federated.simulation import make_data as jmake_data
 from repro.federated.simulation import make_topology as jmake_topology
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import convert
 from repro_torch.compress import QSGDCodec, ef_step, ef_step_masked
 from repro_torch.configs.base import FLConfig

@@ -28,6 +28,7 @@ from repro.federated import engine as jengine
 from repro.federated.server import FLServer as JFLServer
 from repro.federated.simulation import make_data as jmake_data
 from repro.federated.simulation import make_topology as jmake_topology
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import scenarios
 from repro_torch.configs.base import FLConfig
 from repro_torch.federated import FLServer, compare_methods, simulation

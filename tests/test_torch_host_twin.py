@@ -20,6 +20,7 @@ from repro.core import reputation as jrep
 from repro.core import selection as jsel
 from repro.core import shapley as jshap
 from repro.core import trust as jtrust
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.core import (ReputationState, cost_trustfl_aggregate,
                               cosine_utility, ema_update, exact_shapley,
                               monte_carlo_shapley, normalize_scores,

@@ -19,6 +19,7 @@ from repro.compress.topk import TopKCodec as JTopKCodec
 from repro.core import features as jfeatures
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.compress import ef_step_masked
 from repro_torch.compress.topk import TopKCodec
 from repro_torch.kernels import ops

@@ -32,6 +32,7 @@ from _torch_replay import SMALL as _SMALL
 from _torch_replay import reference_draws as _reference_draws
 from _torch_replay import rel as _rel
 from _torch_replay import replay as _replay
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import convert
 from repro_torch.compress.topk import TopKCodec
 from repro_torch.configs.base import FLConfig
@@ -223,12 +224,19 @@ def _host_hook(*args):
     raise AssertionError("a host hook is never called by the engine")
 
 
-# what no round loop of the port runs: the reference's mesh-sharded engine
-# (every method), and the round engine forced onto what only the host
-# round loop runs (dropout under an order statistic, host hooks without
-# a jit_hooks twin)
+# what the port refuses, as the reference does: the mesh-sharded engine
+# on what its shards cannot decompose (a matrix-shaped attack, dropout
+# under an order statistic, host hooks), and the round engine forced onto
+# what only the host round loop runs (dropout under an order statistic,
+# host hooks without a jit_hooks twin)
 @pytest.mark.parametrize("override", [
-    *(dict(aggregator=m, engine="shard") for m in tengine.METHODS),
+    dict(attack="gaussian", engine="shard"),
+    dict(attack="min_max", engine="shard"),
+    dict(aggregator="krum", scenario="dropout", engine="shard"),
+    dict(aggregator="trimmed_mean", scenario="dropout", engine="shard"),
+    dict(aggregator="median", scenario="dropout", engine="shard"),
+    dict(scenario=Scenario("host_deliver", "environment",
+                           deliver=_host_hook), engine="shard"),
     dict(aggregator="krum", scenario="dropout", engine="jit"),
     dict(aggregator="trimmed_mean", scenario="dropout", engine="jit"),
     dict(aggregator="median", scenario="dropout", engine="jit"),
@@ -244,9 +252,10 @@ def test_unported_configs_raise(override):
     scenario = override.pop("scenario", None)
     engine = override.pop("engine")
     fl = FLConfig(**{**_FL, **override})
-    err, match = ((NotImplementedError, "ROADMAP queue A item 6")
-                  if engine == "shard" else (ValueError, "not jittable"))
-    with pytest.raises(err, match=match):
+    match = ("engine='shard' but .*(matrix-shaped|order-statistic "
+             "aggregator|host-only hooks)" if engine == "shard"
+             else "not jittable")
+    with pytest.raises(ValueError, match=match):
         run_simulation(fl, rounds=1, device="cpu", scenario=scenario,
                        data=make_data(fl, **_DATA), engine=engine)
 

@@ -19,6 +19,7 @@ from _torch_replay import SMALL, SMALL_DATA, replay
 from repro import scenarios as jscenarios
 from repro.configs.base import FLConfig as JFLConfig
 from repro.federated import engine as jengine
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import scenarios
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.cost import CostModel

@@ -40,6 +40,7 @@ from repro.models import transformer as jtfm
 from repro.models.model import Model as JModel
 from repro.serve.decode import greedy_generate as jgreedy_generate
 from repro.serve.decode import make_prefill_step as jmake_prefill_step
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.configs.base import ModelConfig, get_arch, reduced
@@ -100,18 +101,6 @@ def _assert_trees(got, want, tol):
             assert np.array_equal(g, w), name
         else:
             assert _rel(g, w) <= tol, (name, _rel(g, w))
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tensors here are small: one intra-op thread runs them as fast
-    alone and keeps PyTorch's thread pool from contending with the
-    suite's other workers for the cores (under pytest-xdist, 8 threads a
-    worker made these tests 20x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from repro.core.trust import cloud_trust as jcloud_trust
 from repro.federated import engine as jengine
 from repro.federated.simulation import make_data as jmake_data
 from repro.federated.simulation import make_topology as jmake_topology
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.compress import build_link_policy
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import (CloudTopology, CostModel, ReputationState,

@@ -33,6 +33,7 @@ from repro.telemetry import ListSink as JListSink
 from repro.telemetry import Telemetry as JTelemetry
 from repro.telemetry import report as jreport
 from repro.telemetry.schema import RunContext as JRunContext
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import convert, scenarios
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.fl_types import CloudTopology

@@ -35,6 +35,7 @@ import torch
 
 from repro.core import features as jfeatures
 from repro.core.shapley import gradient_contribution as jgradient_contribution
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.configs.base import FLConfig
 from repro_torch.federated import engine as tengine
 from repro_torch.kernels import ops
