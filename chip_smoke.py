@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-1. card: print the card's name and power limit (nvidia-smi);
+1. card: print the card's name and power limit (nvidia-smi); check that
+   ``resolve_device`` put cuDNN on its deterministic algorithms;
 2. build: compile every CUDA kernel of ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (timed; registers and spills from ptxas);
 3. kernels: each kernel against its plain PyTorch version on the card at
@@ -17,7 +18,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    separability and weights within 1e-5, gbar and f2 exact, the median
    within 1e-6 relative; trust_score and trust_features are its
    standalone modes; the standalone modes, weighted_agg and the QSGD
-   round trip also at the shard paths' 90 rows), then
+   round trip also at the shard paths' 90 rows; linear_scan's backward,
+   the reverse scan through the same kernel, at (1, 4096, 2560) in bf16
+   and (3, 1000, 130) in fp32 against autograd through the plain scan,
+   ∂a and ∂b within 5e-2 / 1e-5), then
    device times (CUDA graph replays between CUDA events, median of
    repeats) of the kernel's wrapper, the plain version and, where one
    PyTorch call computes the same function, that call (a yardstick the
@@ -40,14 +44,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    an NCCL group; then each shard path against the round engine's
    ``Engine.step`` on the card at full width, ROUNDS rounds each from
    the engine's state: masks, bytes and $ exact, reputation, params and
-   separability within 1e-4 under deterministic cuDNN (cuDNN's default
-   LocalTrain is not deterministic: its drift is printed);
+   separability within 1e-4 (cuDNN deterministic, as the entry points
+   set it);
    and the serve path in fp32 at
    the test configuration (recurrentgemma-2b's layout at d_model 128,
    8 layers, window 64): the prefill of two 96-token prompts on the card
    against the CPU from the same weights — last logits and every cache
    leaf within 1e-4 relative, ``pos`` tags exact — then 4 greedy decode
-   steps with equal tokens and logits within 1e-4;
+   steps with equal tokens and logits within 1e-4; the same for a dense
+   test configuration (gemma2-2b's alternating "L", "A" layout, both
+   softcaps on, 8 layers at d_model 128); and one training step at
+   recurrentgemma-2b's test configuration, the card (linear_scan forward
+   and backward kernels) against the CPU from the same weights and batch:
+   ``Model.grad_fn``'s loss and every gradient leaf within 1e-4
+   relative, then one ``make_plain_step`` with AdamW and its loss;
 5. main paths, with every launch counter reset just before the path and
    read just after it:
    * HEADLINE and DEFENSE, each five rounds of ``FLServer.run_round``
@@ -97,6 +107,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      prefill (8 x 18 = 144), every FL kernel never; logits finite,
      tokens in the vocabulary; the parameter count held, peak memory,
      prefill ms per request and decode tokens/s;
+   * SERVE_GEMMA2, SERVE_DANUBE, SERVE_GRANITE: the same launcher at
+     gemma2-2b's, h2o-danube-3-4b's and granite-3-8b's full published
+     widths, bf16, weights from seed 0, 2 slots, 4 requests of 4096 + 16
+     greedy tokens; every kernel never (no Pallas kernel lies on a dense
+     path); the weights held ``param_count()`` + d_model (final_norm);
+   * TRAIN: recurrentgemma-2b at full width (26 layers, fp32 weights,
+     every layer rematerialized) through ``train.make_plain_step``,
+     AdamW on a cosine schedule after ``clip_by_global_norm(1.0)``,
+     batches of 2 x 2048 tokens from ``token_batches``; one warm-up step
+     and 3 timed ones, each exactly 36 linear_scan launches (18 "R"
+     layers, forward and rematerialized forward) and 18 linear_scan_bwd,
+     every FL kernel never; the loss finite and lower at the last step
+     than at the first; step ms, tokens/s and peak memory;
 6. telemetry (between the FL paths and SERVE): HEADLINE, DEFENSE and
    HOST_HEADLINE, ``ROUNDS`` rounds each through ``run_simulation`` with
    a JSONL and a list sink — every event valid, the JSONL file the
@@ -108,8 +131,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    line; ``run_simulation_batch``: one seed, streamed live, against the
    HEADLINE ``FLServer`` lines (masks, bytes, $ and the mask digest
    exact, floats within 1e-5; the count of byte-identical lines
-   printed), two seeds on shared data against single-seed runs (totals
-   exact); HEADLINE's steady rounds/s with telemetry off, on, on, off,
+   printed), with cuDNN put back on PyTorch's defaults before every
+   entry point and checked deterministic after it (the entry points set
+   the contract; nothing in this script does), two seeds on shared data
+   against single-seed runs (totals exact); HEADLINE's steady rounds/s with telemetry off, on, on, off,
    off, on (``OVERHEAD_ROUNDS`` rounds a turn);
    a checkpoint of HEADLINE's params, reputation and a bf16 leaf,
    restored on the card bit for bit.
@@ -122,7 +147,9 @@ launches (the shard paths) too, apart under ``launches_standalone`` and
 ``launches_fused``; those two entries give the time, error and bound of
 the stage, scalar for trust_score and multi for trust_features, with
 their standalone modes' under ``standalone_*`` and at the shard's
-shapes under ``shard``) and, last, the ``{"ok": true, "device": ...}``
+shapes under ``shard``; linear_scan's entry carries its backward's
+launches (``launches_bwd``, ``launches_bwd_by_path``) and its numbers
+under ``bwd``) and, last, the ``{"ok": true, "device": ...}``
 line. Exits non-zero without a CUDA device, and when
 ``src/repro_torch`` is not beside this script.
 
@@ -191,7 +218,8 @@ FLAT = ("fedavg", "krum", "trimmed_mean", "median", "fltrust")
 def _per_round(**launches):
     """Launches per round of every kernel on a path (0: never)."""
     out = dict(trust_stage=0, trust_score=0, weighted_agg=0, topk_mask=0,
-               stochastic_quantize=0, trust_features=0, linear_scan=0)
+               stochastic_quantize=0, trust_features=0, linear_scan=0,
+               linear_scan_bwd=0)
     out.update(launches)
     return out
 
@@ -247,10 +275,28 @@ OVERHEAD_ROUNDS = 16
 # the round phases' profiler labels (Engine.step, the host round loop)
 PHASES = ("round.select", "round.train", "round.attack", "round.compress",
           "round.aggregate", "round.account")
-# the serve path: recurrentgemma-2b at full width, as the launcher runs it
+# the serve paths at full width, as the launcher runs them: path ->
+# (launcher arguments, weights held). recurrentgemma-2b holds w_a, w_i and
+# final_norm beyond ModelConfig.param_count(); the dense archs hold
+# param_count() + d_model (final_norm)
 SERVE = dict(arch="recurrentgemma-2b", batch=4, requests=8, prompt_len=4096,
              gen=16, dtype="bfloat16", seed=0)
-SERVE_PARAMS = 2_894_435_840     # weights held (w_a, w_i included)
+DENSE_SERVE = dict(SERVE, batch=2, requests=4)   # half the traffic
+SERVE_PATHS = {
+    "serve": (SERVE, 2_894_435_840),
+    "serve_gemma2": (dict(DENSE_SERVE, arch="gemma2-2b"),
+                     2_614_219_776 + 2304),
+    "serve_danube": (dict(DENSE_SERVE, arch="h2o-danube-3-4b"),
+                     3_838_955_520 + 3840),
+    "serve_granite": (dict(DENSE_SERVE, arch="granite-3-8b"),
+                      8_170_844_160 + 4096),
+}
+# the train path: recurrentgemma-2b at full width in fp32, every layer
+# rematerialized, AdamW on a cosine schedule after global-norm clipping,
+# batches of 2 x 2048 tokens from the token stream; one warm-up step,
+# then STEPS timed ones
+TRAIN = dict(arch="recurrentgemma-2b", batch=2, seq=2048, warmup=1, steps=3,
+             lr=3e-4, clip=1.0, loss_chunk=512, stream_tokens=50_000, seed=0)
 
 
 class PhaseError(RuntimeError):
@@ -596,7 +642,72 @@ def kernel_phase(torch, ops, dev):
         # and b once, writes one output once), so it shows the rate that
         # the scan's traffic reaches on this card, below the data sheet's
         add_ms_cold=time_cold_ms(torch, torch.add, sets[torch.bfloat16]))
+    rec["linear_scan"]["bwd"] = scan_bwd_record(torch, ops, dev, gen)
     return rec
+
+
+def scan_bwd_record(torch, ops, dev, gen):
+    """linear_scan's backward (``LinearScan``: the reverse scan, one
+    launch of the same kernel) at the serve shape (1, 4096, 2560) in bf16
+    and a ragged (3, 1000, 130) in fp32, against autograd through
+    ``linear_scan_plain``: ∂a and ∂b within 5e-2 / 1e-5. Then, at the
+    serve shape in bf16: the device time of ``linear_scan_bwd`` (CUDA
+    graph), its eager call, and the plain backward (autograd through the
+    plain scan, its graph kept, eager between CUDA events: autograd's
+    backward does not capture). The bound is the function's own traffic:
+    a, h, dh read once, ∂a and ∂b written once. The wrapper's three
+    contiguous copies (the two time-reversing gathers and the flip back,
+    each read once and written once) are not in it: they are timed apart
+    (``copies_ms``, in a CUDA graph) beside their bytes
+    (``copy_bytes``)."""
+    errs = {}
+    for shape, dtype, tol in (((1, 4096, 2560), torch.bfloat16, 5e-2),
+                              ((3, 1000, 130), torch.float32, 1e-5)):
+        a = (0.1 + 0.89 * torch.rand(*shape, generator=gen, device=dev)
+             ).to(dtype)
+        x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        dh = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        ar, xr = a.clone().requires_grad_(), x.clone().requires_grad_()
+        h = ops.linear_scan(ar, xr)
+        check(h.grad_fn is not None, "linear_scan: no grad_fn on the card")
+        before = ops.linear_scan_bwd.launches
+        got = torch.autograd.grad(h, (ar, xr), dh)
+        check(ops.linear_scan_bwd.launches == before + 1,
+              "linear_scan backward: the kernel did not launch once")
+        ap, xp = a.clone().requires_grad_(), x.clone().requires_grad_()
+        want = torch.autograd.grad(ops.linear_scan_plain(ap, xp), (ap, xp),
+                                   dh)
+        for g, w, what in zip(got, want, ("da", "db")):
+            check(g.dtype == dtype and close(torch, g, w, tol),
+                  f"linear_scan backward {shape} {dtype} {what}: max err "
+                  f"{max_err(torch, g, w)} > {tol}")
+        errs[dtype] = max(max_err(torch, g, w) for g, w in zip(got, want))
+    shape = (1, 4096, 2560)
+    a = (0.1 + 0.89 * torch.rand(*shape, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    dh = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    h = ops.linear_scan(a, x)
+    ap, xp = a.clone().requires_grad_(), x.clone().requires_grad_()
+    hp = ops.linear_scan_plain(ap, xp)
+    n = a.numel()
+    b_ms, b_by = bound(5 * n * 2, 3 * n)
+    run = lambda: ops.linear_scan_bwd(a, h, dh)  # noqa: E731
+
+    def copies():
+        # the wrapper's copies alone, with the index vectors it builds
+        rev = torch.arange(shape[1] - 1, -1, -1, device=dev)
+        a.index_select(1, torch.remainder(rev + 1, shape[1]))
+        dh.index_select(1, rev)
+        h.flip(1)
+    return dict(
+        max_abs_err=errs[torch.bfloat16], max_abs_err_fp32=errs[torch.float32],
+        ms=time_ms(torch, run), call_ms=call_ms(torch, run),
+        plain_ms=call_ms(torch, lambda: torch.autograd.grad(
+            hp, (ap, xp), dh, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        copies_ms=time_ms(torch, copies), copy_bytes=3 * 2 * n * 2,
+        shape="a, h, dh (1, 4096, 2560) bf16 -> da, db bf16")
 
 
 def shard_records(torch, ops, dev, gen, rec, n=90, k=3, L=1290,
@@ -896,10 +1007,10 @@ def shard_engine_phase(torch, dev, path: str):
     """The sharded engine (``path``'s, world size 1 on NCCL) against the
     round engine's ``Engine.step`` on the card at full width, ``ROUNDS``
     rounds, each from the round engine's state of the round before and on
-    one set of own-mode draws (the wire noise materialized), under
-    deterministic cuDNN (its default algorithms are not deterministic, so
-    two LocalTrains of one client differ): masks and float64 bytes and $
-    exact; reputation, params and separability within 1e-4 relative.
+    one set of own-mode draws (the wire noise materialized), with cuDNN
+    on its deterministic algorithms as ``resolve_device`` sets them:
+    masks and float64 bytes and $ exact; reputation, params and
+    separability within 1e-4 relative.
     Returns the worst drifts (the residuals' too, unchecked)."""
     import numpy as np
     from repro_torch.configs.base import FLConfig
@@ -922,32 +1033,31 @@ def shard_engine_phase(torch, dev, path: str):
     worst = {k: 0.0 for k in ("rep", "params", "feat_sep", "res_client",
                               "res_edge")}
     state = eng.init_state(0)
-    with deterministic_cudnn(torch):
-        for t in range(ROUNDS):
-            draws = eng.draws(0, t, full, full_noise=True)
-            # the shard first: Engine.step updates res_client in place
-            b, ob = shard.step(state, cd, t, draws)
-            state, oa = eng.step(state, full, t, draws)
-            da, db = oa.delivered.cpu().numpy(), ob.delivered.cpu().numpy()
-            check(np.array_equal(da, db), f"{path} round {t}: masks differ "
-                  "from the round engine's")
-            check(np.array_equal(eng.host_round_accounting(da[None], t0=t),
-                                 shard.host_round_accounting(db[None], t0=t)),
-                  f"{path} round {t}: bytes/$ differ from the round "
-                  "engine's")
-            for name, x, y in (
-                    ("rep", b.rep_ema, state.rep_ema),
-                    ("params", flat_params(torch, b.params),
-                     flat_params(torch, state.params)),
-                    ("feat_sep", b.feat_sep, state.feat_sep),
-                    ("res_client", b.res_client, state.res_client),
-                    ("res_edge", b.res_edge, state.res_edge)):
-                if y.numel():
-                    worst[name] = max(worst[name], rel_err(torch, x, y))
+    for t in range(ROUNDS):
+        draws = eng.draws(0, t, full, full_noise=True)
+        # the shard first: Engine.step updates res_client in place
+        b, ob = shard.step(state, cd, t, draws)
+        state, oa = eng.step(state, full, t, draws)
+        da, db = oa.delivered.cpu().numpy(), ob.delivered.cpu().numpy()
+        check(np.array_equal(da, db), f"{path} round {t}: masks differ "
+              "from the round engine's")
+        check(np.array_equal(eng.host_round_accounting(da[None], t0=t),
+                             shard.host_round_accounting(db[None], t0=t)),
+              f"{path} round {t}: bytes/$ differ from the round "
+              "engine's")
+        for name, x, y in (
+                ("rep", b.rep_ema, state.rep_ema),
+                ("params", flat_params(torch, b.params),
+                 flat_params(torch, state.params)),
+                ("feat_sep", b.feat_sep, state.feat_sep),
+                ("res_client", b.res_client, state.res_client),
+                ("res_edge", b.res_edge, state.res_edge)):
+            if y.numel():
+                worst[name] = max(worst[name], rel_err(torch, x, y))
     end_group()
     checked = {k: worst[k] for k in ("rep", "params", "feat_sep")}
     check(max(checked.values()) <= 1e-4, f"{path}: shard vs round engine "
-          f"drift {checked} > 1e-4 under deterministic cuDNN")
+          f"drift {checked} > 1e-4")
     return worst
 
 
@@ -1021,44 +1131,43 @@ def _serve_test_model():
                                  layers=3), num_layers=8))
 
 
+def _dense_test_model():
+    """gemma2-2b's layout at the test width: alternating "L", "A" layers
+    (8), both softcaps on (50, 30), GeGLU, d_model 128, window 64."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models.model import Model
+    return Model(replace(reduced(get_arch("gemma2-2b"), d_model=128,
+                                 layers=2), num_layers=8))
+
+
 def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
-                          steps: int = 4):
+                          steps: int = 4, model=None):
     """The fp32 prefill of two ``t``-token prompts (t > the window, so the
     ring wraps) and ``steps`` greedy decode steps on the card (the
-    linear_scan kernel) against the CPU (its plain version), from the
-    same weights and prompts."""
+    linear_scan kernel, once per "R" layer) against the CPU (its plain
+    version), from the same weights and prompts; ``model`` defaults to
+    recurrentgemma-2b's test configuration."""
     import numpy as np
     from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
 
-    model = _serve_test_model()
+    model = model or _serve_test_model()
     cfg = model.cfg
     cpu = torch.device("cpu")
     p_cpu = model.init(0, device=cpu)
     tokens = model.dummy_batch(0, 2, t)["tokens"]
-
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
-    def leaves(tree, prefix=""):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                yield from leaves(v, f"{prefix}/{k}")
-        elif isinstance(tree, list):
-            for i, v in enumerate(tree):
-                yield from leaves(v, f"{prefix}/{i}")
-        else:   # a copy: decode updates attention caches in place
-            yield prefix, tree.detach().cpu().clone()
 
     def run(d, params):
         before = ops.linear_scan.launches
         logits, cache = model.prefill(params, {"tokens": tokens.to(d)},
                                       max_len)
         scans = ops.linear_scan.launches - before
-        out = dict(prefill=logits.cpu(), cache=dict(leaves(cache)),
+        # copies: decode updates attention caches in place
+        out = dict(prefill=logits.cpu(),
+                   cache=[x.detach().cpu().clone()
+                          for x in tree_leaves(cache)],
                    scans=scans, logits=[], tokens=[])
         tok = torch.argmax(logits, dim=-1)
         for i in range(steps):
@@ -1069,7 +1178,7 @@ def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
         return out
 
     host = run(cpu, p_cpu)
-    card = run(dev, to(p_cpu, dev))
+    card = run(dev, tree_map(lambda x: x.to(dev, copy=True), p_cpu))
     n_r = cfg.layer_types().count("R")
     check(card["scans"] == n_r and host["scans"] == 0,
           f"serve agreement: {card['scans']} scan launches on the card "
@@ -1077,13 +1186,15 @@ def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
     worst = {"prefill_logits": rel_err(torch, card["prefill"],
                                        host["prefill"]),
              "cache": 0.0, "decode_logits": 0.0}
-    for name, want in host["cache"].items():
-        got = card["cache"][name]
+    check(len(card["cache"]) == len(host["cache"]),
+          "serve agreement: the caches differ in structure")
+    for i, (got, want) in enumerate(zip(card["cache"], host["cache"])):
         if want.is_floating_point():
             worst["cache"] = max(worst["cache"],
                                  rel_err(torch, got, want))
         else:
-            check(torch.equal(got, want), f"serve agreement: {name} differs")
+            check(torch.equal(got, want),
+                  f"serve agreement: cache leaf {i} differs")
     for a, b, ta, tb in zip(card["logits"], host["logits"], card["tokens"],
                             host["tokens"]):
         check(torch.equal(ta, tb), f"serve agreement: greedy tokens "
@@ -1097,40 +1208,100 @@ def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
     return worst
 
 
-def serve_path_phase(torch, ops, dev):
-    """``launch.serve.serve`` at full width (``SERVE``), the launch
-    counters reset just before and read just after."""
+def train_agreement_phase(torch, ops, dev, seq: int = 96, chunk: int = 40):
+    """One training step at recurrentgemma-2b's test configuration (R, R,
+    L; 8 layers, d_model 128, fp32) on the card (the linear_scan kernel
+    forward and backward) against the CPU (the plain scan), from the same
+    weights and batch: ``Model.grad_fn``'s loss and every gradient leaf
+    within 1e-4 relative, then ``make_plain_step`` with AdamW, its loss
+    the same. The scan launches: once forward and once backward per "R"
+    layer and pass, none on the CPU."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_plain_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = _serve_test_model()
+    n_r = model.cfg.layer_types().count("R")
+    cpu = torch.device("cpu")
+    p_cpu = model.init(0, device=cpu)
+    # a copy: the train step updates its params in place
+    p_dev = tree_map(lambda x: x.to(dev, copy=True), p_cpu)
+    batch = model.dummy_batch(0, 2, seq)
+
+    def run(d, params):
+        b = {k: v.to(d) for k, v in batch.items()}
+        before = (ops.linear_scan.launches, ops.linear_scan_bwd.launches)
+        (loss, _), grads = model.grad_fn(chunk)(params, b)
+        step = make_plain_step(model, None, adamw(1e-3), loss_chunk=chunk)
+        opt_state = adamw(1e-3)[0](params)
+        params, opt_state, met = step(params, opt_state, b)
+        scans = (ops.linear_scan.launches - before[0],
+                 ops.linear_scan_bwd.launches - before[1])
+        return dict(loss=loss.cpu(), grads=[g.cpu() for g in
+                                            tree_leaves(grads)],
+                    step_loss=met["loss"].cpu(), scans=scans,
+                    params=[p.cpu() for p in tree_leaves(params)])
+
+    host = run(cpu, p_cpu)
+    card = run(dev, p_dev)
+    check(card["scans"] == (2 * n_r, 2 * n_r) and host["scans"] == (0, 0),
+          f"train agreement: scan launches {card['scans']} on the card "
+          f"(expected {(2 * n_r, 2 * n_r)}), {host['scans']} on the CPU")
+    worst = {"loss": rel_err(torch, card["loss"], host["loss"]),
+             "grads": max(rel_err(torch, a, b) for a, b in
+                          zip(card["grads"], host["grads"])),
+             "step_loss": rel_err(torch, card["step_loss"],
+                                  host["step_loss"])}
+    check(max(worst.values()) <= 1e-4,
+          f"train: card vs CPU drift {worst} > 1e-4")
+    # not held: AdamW's first step moves every weight by about lr times
+    # the sign of its gradient, so a gradient within rounding of 0 may
+    # step either way
+    worst["params_after_step"] = max(
+        rel_err(torch, a, b) for a, b in zip(card["params"],
+                                               host["params"]))
+    worst["loss_value"] = float(host["loss"])
+    return worst
+
+
+def serve_path_phase(torch, ops, dev, path: str = "serve"):
+    """``launch.serve.serve`` at full width (``SERVE_PATHS[path]``), the
+    launch counters reset just before and read just after: linear_scan
+    once per "R" layer per prefill, every other kernel never (a dense arch
+    launches none); the weights held as stated; peak memory, prefill ms
+    and decode tokens/s."""
     from repro_torch.configs.base import get_arch
     from repro_torch.launch.serve import serve
 
-    cfg = get_arch(SERVE["arch"])
+    sv, held = SERVE_PATHS[path]
+    cfg = get_arch(sv["arch"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve(SERVE["arch"], batch=SERVE["batch"],
-                requests=SERVE["requests"], prompt_len=SERVE["prompt_len"],
-                gen=SERVE["gen"], device=dev, dtype=SERVE["dtype"],
-                seed=SERVE["seed"])
+    res = serve(sv["arch"], batch=sv["batch"], requests=sv["requests"],
+                prompt_len=sv["prompt_len"], gen=sv["gen"], device=dev,
+                dtype=sv["dtype"], seed=sv["seed"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = ops.launch_counts()
     want = {n: 0 for n in counts}
-    want["linear_scan"] = SERVE["requests"] * cfg.layer_types().count("R")
-    check(counts == want, f"serve: launches {counts}, expected {want}")
-    check(res.n_params == SERVE_PARAMS,
-          f"serve: {res.n_params} weights, expected {SERVE_PARAMS}")
+    want["linear_scan"] = sv["requests"] * cfg.layer_types().count("R")
+    check(counts == want, f"{path}: launches {counts}, expected {want}")
+    check(res.n_params == held,
+          f"{path}: {res.n_params} weights, expected {held}")
     check(sorted(r.rid for r in res.requests)
-          == list(range(SERVE["requests"])), "serve: requests lost")
+          == list(range(sv["requests"])), f"{path}: requests lost")
     for r in res.requests:
-        check(r.done and len(r.generated) == SERVE["gen"]
+        check(r.done and len(r.generated) == sv["gen"]
               and all(0 <= tok < cfg.vocab_size for tok in r.generated),
-              f"serve: request {r.rid} generated {r.generated}")
-    check(res.finite, "serve: a prefill or decode logit is not finite")
+              f"{path}: request {r.rid} generated {r.generated}")
+    check(res.finite, f"{path}: a prefill or decode logit is not finite")
     prefill_ms = [r.prefill_s * 1e3
                   for r in sorted(res.requests, key=lambda r: r.rid)]
     return counts, dict(
-        n_params=res.n_params, analytic_param_count=cfg.param_count(),
+        arch=sv["arch"], n_params=res.n_params,
+        analytic_param_count=cfg.param_count(),
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         init_s=res.init_s, wall_s=wall_s, prefill_ms=prefill_ms,
         prefill_ms_first=prefill_ms[0],
@@ -1138,6 +1309,89 @@ def serve_path_phase(torch, ops, dev):
         decode_steps=res.decode_steps, decode_s=res.decode_s,
         decode_tokens_per_s=res.decode_tokens_per_s,
         tokens={r.rid: r.generated for r in res.requests})
+
+
+def train_path_phase(torch, ops, dev):
+    """``TRAIN``: recurrentgemma-2b at full width (26 layers, fp32
+    weights, ``remat``) through ``train.make_plain_step`` with AdamW on a
+    cosine schedule after ``clip_by_global_norm``, fed 2 x 2048-token
+    windows of ``data.token_batches(make_token_stream(...))``; one
+    warm-up step, then ``TRAIN["steps"]`` timed ones. The launch counters
+    are reset just before each step and read just after: linear_scan
+    twice per "R" layer (the forward and the rematerialized forward in
+    the backward), linear_scan_bwd once, every other kernel never. The
+    loss finite and lower at the last step than at the first."""
+    import math
+
+    import numpy as np
+    from repro_torch.data import make_token_stream, token_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, clip_by_global_norm, cosine_schedule
+    from repro_torch.train import make_plain_step
+
+    tr = TRAIN
+    model = build_model(tr["arch"])
+    cfg = model.cfg
+    check(cfg.remat and cfg.num_layers == 26,
+          f"train: {cfg.num_layers} layers, remat {cfg.remat}")
+    n_r = cfg.layer_types().count("R")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(tr["seed"], device=dev, dtype=torch.float32)
+    init, update = adamw(cosine_schedule(tr["lr"], warmup=tr["warmup"],
+                                         total=tr["warmup"] + tr["steps"]))
+
+    def clipped_update(grads, state, p):
+        return update(clip_by_global_norm(grads, tr["clip"])[0], state, p)
+    opt_state = init(params)
+    step = make_plain_step(model, None, (init, clipped_update),
+                           loss_chunk=tr["loss_chunk"])
+    stream = make_token_stream(tr["stream_tokens"], cfg.vocab_size,
+                               seed=tr["seed"])
+    batches = token_batches(stream, batch=tr["batch"], seq=tr["seq"],
+                            seed=tr["seed"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    per_step = {n: 0 for n in ops.launch_counts()}
+    per_step.update(linear_scan=2 * n_r, linear_scan_bwd=n_r)
+    counts = {n: 0 for n in per_step}
+    losses, step_s = [], []
+    for i in range(tr["warmup"] + tr["steps"]):
+        toks = next(batches)
+        batch = {"tokens": torch.tensor(toks[:, :-1], device=dev).long(),
+                 "labels": torch.tensor(toks[:, 1:], device=dev).long(),
+                 "mask": torch.ones(tr["batch"], tr["seq"], device=dev)}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = ops.launch_counts()
+        check(got == per_step,
+              f"train step {i}: launches {got}, expected {per_step}")
+        losses.append(float(met["loss"]))
+        check(math.isfinite(losses[-1]), f"train step {i}: loss {losses}")
+        counts = {n: counts[n] + got[n] for n in counts}
+        if i >= tr["warmup"]:
+            step_s.append(dt)
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    check(int(opt_state.step) == tr["warmup"] + tr["steps"],
+          f"train: optimizer step {int(opt_state.step)}")
+    for k, v in (("embed", params["embed"]),
+                 ("final_norm", params["final_norm"])):
+        check(bool(torch.isfinite(v).all()), f"train: {k} not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = tr["batch"] * tr["seq"]
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    return counts, dict(
+        arch=tr["arch"], setup_s=setup_s, losses=losses, step_s=step_s,
+        step_ms=1e3 * statistics.median(step_s),
+        tokens_per_s=tokens / statistics.median(step_s), peak_gib=peak,
+        launches_per_step=per_step, loss_drop=losses[0] - losses[-1],
+        finite=bool(np.isfinite(losses).all()))
 
 
 def main_path_phase(torch, ops, dev, path: str):
@@ -1298,15 +1552,18 @@ def compare_round_lines(a, b, what: str, strict: bool = True):
     return identical, first, worst, field
 
 
-@contextmanager
-def deterministic_cudnn(torch):
-    """cuDNN restricted to its deterministic algorithms in the body."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
+def undo_cudnn_contract(torch):
+    """cuDNN back on PyTorch's defaults (any algorithm, the autotuner
+    on), as a caller may have left it: the entry point run next must set
+    the port's deterministic contract itself."""
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+
+
+def check_cudnn_contract(torch, what: str) -> None:
+    check(torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          f"{what}: the entry point left cuDNN non-deterministic")
 
 
 def steady_rounds_per_s(torch, server, rounds: int) -> float:
@@ -1345,6 +1602,7 @@ def telemetry_phase(torch, ops, dev, work: Path):
         knobs, scenario, engine, per_round = PATHS[path]
         fl = FLConfig(**knobs)
         sink, jsonl = ListSink(), work / f"{path}.jsonl"
+        undo_cudnn_contract(torch)
         ops.reset_launch_counts()
         with captured_servers() as made, \
                 Telemetry(JsonlSink(jsonl), sink) as tel:
@@ -1352,6 +1610,7 @@ def telemetry_phase(torch, ops, dev, work: Path):
                                  rounds=ROUNDS, eval_every=ROUNDS, data=data,
                                  device=dev, engine=engine, telemetry=tel)
         counts = ops.launch_counts()
+        check_cudnn_contract(torch, f"run_simulation {path}")
         want = {n: c * ROUNDS for n, c in per_round.items()}
         check(counts == want,
               f"telemetry {path}: launches {counts}, expected {want}")
@@ -1409,16 +1668,19 @@ def telemetry_phase(torch, ops, dev, work: Path):
     rec["report"] = shown.stdout
 
     # run_simulation_batch: one seed live through Engine.run's tap,
-    # against the FLServer driver's headline lines above — as a user runs
-    # them (cuDNN free to pick non-deterministic algorithms: how far the
-    # two runs of one seed agree is recorded), then both again with
-    # cuDNN deterministic, held exact; two seeds on shared data against
-    # single-seed runs
+    # against the FLServer run's headline lines above (two runs of one
+    # seed, held exact: the entry points put cuDNN on its deterministic
+    # algorithms, so nothing in the caller does; the contract is undone
+    # before each entry point to show that it sets it); two seeds on
+    # shared data against single-seed runs
     fl = FLConfig(**PATHS["headline"][0])
 
     def batch(seeds, tel=None):
-        return run_simulation_batch(fl, seeds=seeds, rounds=ROUNDS,
-                                    data=data, device=dev, telemetry=tel)
+        undo_cudnn_contract(torch)
+        out = run_simulation_batch(fl, seeds=seeds, rounds=ROUNDS,
+                                   data=data, device=dev, telemetry=tel)
+        check_cudnn_contract(torch, "run_simulation_batch")
+        return out
     live = ListSink()
     ops.reset_launch_counts()
     batch([0], Telemetry(live))
@@ -1426,19 +1688,9 @@ def telemetry_phase(torch, ops, dev, work: Path):
     want = {n: c * ROUNDS for n, c in PATHS["headline"][3].items()}
     check(counts == want, f"batch: launches {counts}, expected {want}")
     check(not validate_events(live.events), "batch: invalid events")
-    default = compare_round_lines(_round_events(live.events),
-                                  streams["headline"], "batch vs FLServer",
-                                  strict=False)
-    with deterministic_cudnn(torch):
-        server_sink, live = ListSink(), ListSink()
-        run_simulation(fl, rounds=ROUNDS, eval_every=ROUNDS, data=data,
-                       device=dev, engine="jit",
-                       telemetry=Telemetry(server_sink))
-        batch([0], Telemetry(live))
-        strict = compare_round_lines(
-            _round_events(live.events), _round_events(server_sink.events),
-            "batch vs FLServer, deterministic cuDNN")
-        two, one, one1 = batch([0, 1]), batch([0]), batch([1])
+    strict = compare_round_lines(_round_events(live.events),
+                                 streams["headline"], "batch vs FLServer")
+    two, one, one1 = batch([0, 1]), batch([0]), batch([1])
     for single, batched in ((one[0], two[0]), (one1[0], two[1])):
         check((single.total_cost, single.intra_bytes, single.cross_bytes)
               == (batched.total_cost, batched.intra_bytes,
@@ -1446,7 +1698,6 @@ def telemetry_phase(torch, ops, dev, work: Path):
               and np.array_equal(single.reputation, batched.reputation),
               "batch seeds=[0, 1]: a seed's run differs from its own")
     rec["batch"] = dict(launches=counts, lines=ROUNDS,
-                        default=dict(zip(_COMPARED, default)),
                         deterministic=dict(zip(_COMPARED, strict)),
                         totals=[r.total_cost for r in two])
 
@@ -1694,6 +1945,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
 
     dev = resolve_device("cuda")
+    check_cudnn_contract(torch, "resolve_device")
     out = out_dir()
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1727,11 +1979,24 @@ def main() -> int:
     shard_vs_engine = {path: shard_engine_phase(torch, dev, path)
                        for path in SHARD_PATHS}
     print(f"shard vs round engine on the card, full width, {ROUNDS} rounds "
-          f"each from the engine's state, deterministic cuDNN: "
-          f"{shard_vs_engine}", flush=True)
+          f"each from the engine's state: {shard_vs_engine}", flush=True)
     worst["serve"] = serve_agreement_phase(torch, ops, dev)
     print(f"agreement card vs CPU, serve prefill + 4 decode steps (fp32, "
           f"test configuration): {worst['serve']}", flush=True)
+    phase_s = {}
+    t0 = time.perf_counter()
+    worst["serve_dense"] = serve_agreement_phase(torch, ops, dev,
+                                                 model=_dense_test_model())
+    phase_s["agreement_serve_dense"] = time.perf_counter() - t0
+    print(f"agreement card vs CPU, dense serve prefill + 4 decode steps "
+          f"(fp32, gemma2-2b layout, softcaps on): {worst['serve_dense']} "
+          f"({phase_s['agreement_serve_dense']:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    worst["train"] = train_agreement_phase(torch, ops, dev)
+    phase_s["agreement_train"] = time.perf_counter() - t0
+    print(f"agreement card vs CPU, one AdamW train step (fp32, test "
+          f"configuration): {worst['train']} "
+          f"({phase_s['agreement_train']:.1f} s)", flush=True)
     counts, main = {}, {}
     for path in PATHS:
         counts[path], main[path] = main_path_phase(torch, ops, dev, path)
@@ -1750,13 +2015,13 @@ def main() -> int:
     print(f"telemetry report CLI on the headline stream:\n"
           f"{tel['report'].rstrip()}", flush=True)
     b, o = tel["batch"], tel["overhead"]
-    for mode in ("default", "deterministic"):
-        m = b[mode]
-        print(f"telemetry run_simulation_batch seeds=[0] vs FLServer, "
-              f"cuDNN {mode}: {m['byte_identical']} of {b['lines']} round "
-              f"lines byte-identical, first differing round "
-              f"{m['first_differing_round']}, floats {m['float_drift']:.3e} "
-              f"apart before it ({m['drifted_most']})", flush=True)
+    m = b["deterministic"]
+    print(f"telemetry run_simulation_batch seeds=[0] vs FLServer, cuDNN as "
+          f"the entry points set it (undone before each): "
+          f"{m['byte_identical']} of {b['lines']} round lines "
+          f"byte-identical, first differing round "
+          f"{m['first_differing_round']}, floats {m['float_drift']:.3e} "
+          f"apart ({m['drifted_most']})", flush=True)
     print(f"telemetry run_simulation_batch seeds=[0, 1]: totals "
           f"{b['totals']}, each seed's run equal to its own", flush=True)
     print(f"telemetry overhead ({card}): headline steady rounds/s "
@@ -1764,15 +2029,30 @@ def main() -> int:
           f"median on / median off {o['ratio']:.4f}", flush=True)
     print(f"telemetry checkpoint: {tel['checkpoint']['leaves']} leaves "
           f"restored bit for bit on the card", flush=True)
-    counts["serve"], main["serve"] = serve_path_phase(torch, ops, dev)
-    sv = main["serve"]
-    print(f"main path serve: launches {counts['serve']}; {sv}", flush=True)
-    print(f"main path serve ({card}): {sv['n_params']} weights held, peak "
-          f"{sv['peak_gib']:.3f} GiB, prefill of {SERVE['prompt_len']} "
-          f"tokens {sv['prefill_ms_first']:.3f} ms first, "
-          f"{sv['prefill_ms_steady']:.3f} ms steady (median of the other "
-          f"{SERVE['requests'] - 1}), decode {sv['decode_tokens_per_s']:.3f} "
-          f"tokens/s at batch 1 per slot", flush=True)
+    for path, (spec, _) in SERVE_PATHS.items():
+        t0 = time.perf_counter()
+        counts[path], main[path] = serve_path_phase(torch, ops, dev, path)
+        phase_s[path] = time.perf_counter() - t0
+        sv = main[path]
+        print(f"main path {path}: launches {counts[path]}; {sv}", flush=True)
+        print(f"main path {path} ({spec['arch']}, {card}): {sv['n_params']} "
+              f"weights held, peak {sv['peak_gib']:.3f} GiB, prefill of "
+              f"{spec['prompt_len']} tokens {sv['prefill_ms_first']:.3f} ms "
+              f"first, {sv['prefill_ms_steady']:.3f} ms steady (median of "
+              f"the other {spec['requests'] - 1}), decode "
+              f"{sv['decode_tokens_per_s']:.3f} tokens/s at batch 1 per "
+              f"slot ({phase_s[path]:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    counts["train"], main["train"] = train_path_phase(torch, ops, dev)
+    phase_s["train"] = time.perf_counter() - t0
+    tr = main["train"]
+    print(f"main path train: launches {counts['train']}; {tr}", flush=True)
+    print(f"main path train ({TRAIN['arch']}, fp32, {card}): losses "
+          f"{[round(x, 4) for x in tr['losses']]}, step "
+          f"{tr['step_ms']:.1f} ms (median of {TRAIN['steps']}), "
+          f"{tr['tokens_per_s']:.1f} tokens/s, peak {tr['peak_gib']:.3f} "
+          f"GiB; launches per step {tr['launches_per_step']} "
+          f"({phase_s['train']:.1f} s)", flush=True)
 
     # launches: the sum over the paths' runs (each read right after its
     # path, counters reset right before); per path beside it. The fused
@@ -1803,14 +2083,18 @@ def main() -> int:
             entry.update({key: rec["trust_stage"][key + tag] for key in keys})
         kernels.append(entry)
     for k in kernels:       # the cold-L2 time, the flat path's shape
-        for extra in ("ms_cold", "flat", "row_threshold_ms", "shard"):
+        for extra in ("ms_cold", "flat", "row_threshold_ms", "shard", "bwd"):
             if extra in rec[k["name"]]:
                 k[extra] = rec[k["name"]][extra]
+        if k["name"] == "linear_scan":   # the backward's own counter
+            k["launches_bwd_by_path"] = {p: c["linear_scan_bwd"]
+                                         for p, c in counts.items()}
+            k["launches_bwd"] = sum(k["launches_bwd_by_path"].values())
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             dict(card=card, kernels=rec, launches=counts, agreement=worst,
                  shard_vs_engine=shard_vs_engine, main_paths=main,
-                 telemetry=tel), indent=1, default=float))
+                 telemetry=tel, phase_s=phase_s), indent=1, default=float))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 of ``repro.configs.base.FLConfig`` and ``ModelConfig`` (same fields,
 same defaults, same properties), ``register_arch``/``get_arch`` and
 ``reduced``. Only the architectures the port runs are registered
-(``recurrentgemma-2b``); ``get_arch`` of another raises ``KeyError``."""
+(``recurrentgemma-2b`` and the dense ``gemma2-2b``, ``granite-3-8b``,
+``h2o-danube-3-4b``, ``mistral-large-123b``); ``get_arch`` of another
+raises ``KeyError``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -182,10 +184,12 @@ def get_arch(name: str) -> ModelConfig:
     the port does not run yet."""
     if name not in _ARCHES:
         # import side-effect registration
-        from repro_torch.configs import recurrentgemma_2b  # noqa: F401
+        from repro_torch.configs import (  # noqa: F401
+            gemma2_2b, granite_3_8b, h2o_danube_3_4b, mistral_large_123b,
+            recurrentgemma_2b)
     if name not in _ARCHES:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md A.10: "
-                       f"model zoo); ported: {sorted(_ARCHES)}")
+        raise KeyError(f"arch {name!r} is not ported yet; ported: "
+                       f"{sorted(_ARCHES)}")
     return _ARCHES[name]
 
 

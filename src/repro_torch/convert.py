@@ -2,7 +2,8 @@
 port as numpy arrays. The port keeps the reference's parameter layout
 (conv HWIO, dense (in, out), sorted keys), so conversion is a copy; for
 the model zoo it also unstacks the reference's ``scanned``/``tail``
-layer groups into the port's per-layer list, and stacks them back."""
+layer groups into the port's per-layer list, and stacks them back, and
+carries an optimizer state (``OptState``) across the same way."""
 from __future__ import annotations
 
 import math
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.engine import RoundState
+from repro_torch.optim import OptState
+from repro_torch.tree import tree_map
 
 
 def params_from_numpy(params: Mapping[str, np.ndarray], *,
@@ -60,14 +63,6 @@ def round_state_from_numpy(params: Mapping[str, np.ndarray],
 # ---------------------------------------------------------------------------
 # model zoo: the reference's stacked layer groups <-> the port's list
 
-def _map(fn: Callable, tree):
-    if isinstance(tree, Mapping):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def _p_eff(cfg: ModelConfig) -> int:
     """The reference's period of the per-layer signature
     (``repro/models/transformer.py:_p_eff``)."""
@@ -81,7 +76,7 @@ def _unstack(tree: Mapping[str, Any], cfg: ModelConfig) -> List[Any]:
     """Layer i of the reference's {"scanned": [...], "tail": [...]}."""
     p = _p_eff(cfg)
     r = cfg.num_layers // p
-    return [_map(lambda a, i=i: np.asarray(a)[i // p], tree["scanned"][i % p])
+    return [tree_map(lambda a, i=i: np.asarray(a)[i // p], tree["scanned"][i % p])
             if i < r * p else tree["tail"][i - r * p]
             for i in range(cfg.num_layers)]
 
@@ -123,7 +118,7 @@ def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, *,
     conv = _from_np(device, dtype)
     out = {k: conv(v) for k, v in tree.items()
            if k not in ("scanned", "tail")}
-    out["layers"] = [_map(conv, lp) for lp in _unstack(tree, cfg)]
+    out["layers"] = [tree_map(conv, lp) for lp in _unstack(tree, cfg)]
     return out
 
 
@@ -132,7 +127,7 @@ def model_params_to_numpy(params: Mapping[str, Any], cfg: ModelConfig
     """The port's model params -> the reference's stacked tree (numpy
     leaves, float32 for floating tensors)."""
     out = {k: _to_np(v) for k, v in params.items() if k != "layers"}
-    out.update(_stack([_map(_to_np, lp) for lp in params["layers"]], cfg))
+    out.update(_stack([tree_map(_to_np, lp) for lp in params["layers"]], cfg))
     return out
 
 
@@ -141,10 +136,33 @@ def model_cache_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, *,
     """A reference decode cache {"scanned", "tail"} (numpy leaves) -> the
     port's {"layers": [...]} (``pos`` stays int32)."""
     conv = _from_np(device, dtype)
-    return {"layers": [_map(conv, lc) for lc in _unstack(tree, cfg)]}
+    return {"layers": [tree_map(conv, lc) for lc in _unstack(tree, cfg)]}
 
 
 def model_cache_to_numpy(cache: Mapping[str, Any], cfg: ModelConfig
                          ) -> Dict[str, Any]:
     """The port's decode cache -> the reference's stacked tree."""
-    return _stack([_map(_to_np, lc) for lc in cache["layers"]], cfg)
+    return _stack([tree_map(_to_np, lc) for lc in cache["layers"]], cfg)
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig, *, device) -> OptState:
+    """A reference ``OptState`` (step, mu, nu) with numpy leaves and the
+    moments in the reference's stacked layout -> the port's: the step an
+    int32 0-d tensor, the moments (or ``None``) fp32 per layer, on
+    ``device``."""
+    step, mu, nu = state
+
+    def moments(tree):
+        return None if tree is None else model_params_from_numpy(
+            tree, cfg, device=device)
+    return OptState(torch.tensor(np.asarray(step), dtype=torch.int32,
+                                 device=device), moments(mu), moments(nu))
+
+
+def opt_state_to_numpy(state: OptState, cfg: ModelConfig) -> OptState:
+    """The port's ``OptState`` -> one with numpy leaves in the reference's
+    layout (``repro.optim.OptState(*it)`` rebuilds the reference's)."""
+    def moments(tree):
+        return None if tree is None else model_params_to_numpy(tree, cfg)
+    return OptState(np.asarray(state.step.cpu().numpy(), np.int32),
+                    moments(state.mu), moments(state.nu))

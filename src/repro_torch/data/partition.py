@@ -1,5 +1,5 @@
-"""Non-IID federated partitioning: Dirichlet(α) label-skew split
-(paper §V-A, [Zhao et al. 2018])."""
+"""Federated partitioning: the non-IID Dirichlet(α) label-skew split
+(paper §V-A, [Zhao et al. 2018]) and an IID split."""
 from __future__ import annotations
 
 from typing import List
@@ -27,3 +27,11 @@ def dirichlet_partition(labels: np.ndarray, n_clients: int, alpha: float,
             break
         alpha *= 1.5   # retry with slightly more uniformity to avoid empties
     return [np.array(sorted(ix)) for ix in idx_per_client]
+
+
+def iid_partition(n: int, n_clients: int, seed: int = 0) -> List[np.ndarray]:
+    """A seeded permutation of range(n) split into ``n_clients`` near-equal
+    parts, each sorted."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    return [np.sort(p) for p in np.array_split(perm, n_clients)]

@@ -1,10 +1,11 @@
 """Federated data pipeline: builds fixed-size per-client sample tensors
 (so client datasets stack into (N_clients, n_samples, ...) arrays
 for batched local training) + a reference dataset per cloud (FLTrust-style
-trust anchor)."""
+trust anchor); and token windows for the language models."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 
@@ -54,3 +55,13 @@ def build_federated(ds: ImageDataset, topo: CloudTopology, *,
         ref_x=ds.x[ref_ix], ref_y=ds.y[ref_ix],
         test_x=ds.x[test_ix], test_y=ds.y[test_ix],
         n_classes=ds.n_classes)
+
+
+def token_batches(stream: np.ndarray, batch: int, seq: int, seed: int = 0
+                  ) -> Iterator[np.ndarray]:
+    """Infinite iterator of (batch, seq+1) token windows."""
+    rng = np.random.default_rng(seed)
+    n = len(stream) - seq - 1
+    while True:
+        starts = rng.integers(0, n, size=batch)
+        yield np.stack([stream[s: s + seq + 1] for s in starts])

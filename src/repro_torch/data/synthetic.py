@@ -2,7 +2,8 @@
 ``repro.data.synthetic``, so the same seed yields equal arrays).
 Class-conditional Gaussian-mixture images at the original
 resolutions/class counts so non-IID partitioning, label-flipping, and
-classifier learning behave like the real benchmarks."""
+classifier learning behave like the real benchmarks; a Markov-ish token
+stream for the language models."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -50,3 +51,18 @@ def make_femnist_like(n: int = 16000, seed: int = 0) -> ImageDataset:
     rng = np.random.default_rng(seed)
     x, y = _class_conditional_images(rng, n, (28, 28, 1), 62)
     return ImageDataset(x, y, 62, "synth-femnist")
+
+
+def make_token_stream(n_tokens: int, vocab: int, seed: int = 0,
+                      order: int = 2) -> np.ndarray:
+    """Markov-ish synthetic token stream so an LM has learnable structure."""
+    rng = np.random.default_rng(seed)
+    # sparse bigram transition structure over a reduced state space
+    n_states = min(vocab, 256)
+    trans = rng.integers(0, n_states, size=(n_states, 8))
+    toks = np.empty(n_tokens, np.int32)
+    s = 0
+    for i in range(n_tokens):
+        s = int(trans[s, rng.integers(0, 8)])
+        toks[i] = s if rng.random() > 0.05 else int(rng.integers(0, vocab))
+    return toks

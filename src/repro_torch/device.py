@@ -12,7 +12,9 @@ DeviceLike = Union[str, torch.device]
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises when a CUDA device is asked
     for and none is present (the port never falls back to the CPU on its
-    own), and sets full-fp32 convolutions and matmuls on the card."""
+    own), and sets the card's numerics contract: full-fp32 convolutions
+    and matmuls, and cuDNN restricted to its deterministic algorithms, so
+    two runs of one seed give the same bits (the reference's promise)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -24,6 +26,10 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+        # cuDNN's default algorithms (and its autotuner's choice) are not
+        # deterministic: two LocalTrains of one client would differ
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}; "
                          "use 'cuda' or 'cpu'")

@@ -5,7 +5,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+from repro_torch.kernels.linear_scan import (LinearScan, linear_scan,
+                                            linear_scan_bwd,
+                                            linear_scan_plain)
 from repro_torch.kernels.stochastic_quantize import (
     quantize_roundtrip, quantize_roundtrip_plain, stochastic_quantize,
     stochastic_quantize_plain)
@@ -23,11 +25,13 @@ from repro_torch.kernels.weighted_agg import (agg_weights, weighted_agg,
 
 # one counter per wrapper that launches a kernel (quantize_roundtrip
 # launches stochastic_quantize's; trust_score and trust_features launch
-# the standalone modes of trust_stage's kernel, counted apart)
+# the standalone modes of trust_stage's kernel, counted apart; the
+# backward of linear_scan launches its kernel, counted apart)
 KERNELS = {"trust_stage": trust_stage, "trust_score": trust_score,
            "weighted_agg": weighted_agg, "topk_mask": topk_mask,
            "stochastic_quantize": stochastic_quantize,
-           "trust_features": trust_features, "linear_scan": linear_scan}
+           "trust_features": trust_features, "linear_scan": linear_scan,
+           "linear_scan_bwd": linear_scan_bwd}
 
 
 def reset_launch_counts() -> None:
@@ -47,5 +51,6 @@ __all__ = ["trust_stage", "trust_stage_plain", "TrustStage",
            "stochastic_quantize_plain", "quantize_roundtrip",
            "quantize_roundtrip_plain", "trust_features",
            "trust_features_plain", "linear_scan", "linear_scan_plain",
+           "linear_scan_bwd", "LinearScan",
            "KERNELS", "reset_launch_counts",
            "launch_counts"]

@@ -211,5 +211,5 @@ def _decode_attn(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
     if k.shape[1] > _DECODE_CHUNK:
         raise NotImplementedError(
             f"decode over a cache of {k.shape[1]} > 2^20 slots takes the "
-            "reference's chunked branch, not ported yet (ROADMAP.md A.10)")
+            "reference's chunked branch, which is not ported yet")
     return _sdpa(q, k, v, valid[None, None, None, None, :], attn_cap)

@@ -1,7 +1,7 @@
 """Per-layer block: pre-norm mixer (attention / RG-LRU) + pre-norm dense
 FFN, with the reference's cache protocol for decode (the port's copy of
 ``repro/models/blocks.py``). RWKV6, MoE and cross-attention layers raise
-``NotImplementedError`` naming the ROADMAP item they wait for."""
+``NotImplementedError`` naming the missing feature."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -22,14 +22,12 @@ def check_layer(layer_type: str, is_moe: bool = False,
                 cross: bool = False) -> None:
     """Raise for a layer kind the port does not run yet."""
     if layer_type == "W":
-        raise NotImplementedError("RWKV6 (\"W\") layers are not ported yet "
-                                  "(ROADMAP.md A.10)")
+        raise NotImplementedError("RWKV6 (\"W\") layers are not ported yet")
     if is_moe:
-        raise NotImplementedError("MoE FFN layers are not ported yet "
-                                  "(ROADMAP.md A.10)")
+        raise NotImplementedError("MoE FFN layers are not ported yet")
     if cross:
-        raise NotImplementedError("cross-attention comes with Whisper "
-                                  "(ROADMAP.md A.10)")
+        raise NotImplementedError("cross-attention layers (Whisper's "
+                                  "decoder) are not ported yet")
     if layer_type not in ATTN_BLOCKS + ("R",):
         raise ValueError(layer_type)
 

@@ -1,12 +1,13 @@
 """Shared layers of the model zoo (the port's copy of the parts of
-``repro/models/common.py`` the serving path uses): plain functions over
-tensors, parameters in plain dicts."""
+``repro/models/common.py`` the serving and training paths use): plain
+functions over tensors, parameters in plain dicts."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 
@@ -66,3 +67,46 @@ def gelu(x: Tensor) -> Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's
     default is the exact erf form)."""
     return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)``, rematerialized in the backward when autograd
+    records (the reference's ``jax.checkpoint``): only ``args`` are
+    saved, and the backward reruns ``fn`` for the rest."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def chunked_cross_entropy(logits_fn: Callable[[Tensor], Tensor],
+                          hidden: Tensor, labels: Tensor, mask: Tensor, *,
+                          chunk: int = 512,
+                          logit_softcap_val: float = 0.0) -> Tensor:
+    """Memory-efficient LM loss: a loop over sequence chunks, each chunk's
+    loss rematerialized (:func:`remat`), so the (B, S, vocab) logits are
+    never held and the backward keeps one (B, chunk, vocab) chunk at a
+    time. ``logits_fn(h_chunk) -> (B, c, V)``; labels/mask: (B, S); a
+    remainder S mod ``chunk`` is one last, shorter chunk. Returns the
+    mean NLL over masked positions (the reference's sharding hints have
+    no counterpart on one device)."""
+    s = hidden.shape[1]
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    rem = s - n_chunks * chunk
+
+    def chunk_loss(h: Tensor, y: Tensor, m: Tensor) -> Tensor:
+        logits = softcap(logits_fn(h), logit_softcap_val).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        return torch.sum((logz - gold) * m)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + remat(chunk_loss, hidden[:, sl], labels[:, sl],
+                              mask[:, sl])
+    if rem:
+        total = total + remat(chunk_loss, hidden[:, -rem:], labels[:, -rem:],
+                              mask[:, -rem:])
+    denom = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+    return total / denom

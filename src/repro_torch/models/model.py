@@ -1,11 +1,11 @@
-"""Public model API: ``Model(cfg)`` bundles init / prefill / decode (the
-port's copy of the serving parts of ``repro/models/model.py``; ``loss``
-and ``grad_fn`` wait for the training slice). Parameters and caches are
-plain dicts of tensors; ``Model`` only carries the static config."""
+"""Public model API: ``Model(cfg)`` bundles init / loss / grad / prefill
+/ decode (the port's copy of ``repro/models/model.py`` for decoder-only
+models). Parameters, gradients and caches are plain dicts of tensors;
+``Model`` only carries the static config."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig, get_arch, reduced
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import softcap
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -43,6 +44,26 @@ class Model:
         gen.manual_seed(seed)
         return tfm.init_params(gen, self.cfg, as_dtype(dtype))
 
+    # -- training -----------------------------------------------------------
+    def loss(self, params: Params, batch: Dict[str, Tensor],
+             loss_chunk: int = 512) -> Tuple[Tensor, Dict[str, Tensor]]:
+        return tfm.loss_fn(params, self.cfg, batch, loss_chunk)
+
+    def grad_fn(self, loss_chunk: int = 512) -> Callable:
+        """``fn(params, batch) -> ((loss, metrics), grads)`` with grads in
+        the params' tree: ``jax.value_and_grad(loss, has_aux=True)``, by
+        ``torch.autograd.grad`` over the leaves. Leaves ``params`` as they
+        are (their aliases are the ones marked to require grad)."""
+        def value_and_grad(params: Params, batch: Dict[str, Tensor]):
+            xs = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            with torch.enable_grad():
+                loss, metrics = self.loss(tree_unflatten(params, xs), batch,
+                                          loss_chunk)
+                grads = torch.autograd.grad(loss, xs)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return (loss.detach(), metrics), tree_unflatten(params, grads)
+        return value_and_grad
+
     # -- serving ------------------------------------------------------------
     def init_cache(self, params: Params, batch: int, max_len: int
                    ) -> Params:
@@ -71,15 +92,21 @@ class Model:
     # -- helpers ------------------------------------------------------------
     def dummy_batch(self, seed: int, batch: int, seq: int, *,
                     device: DeviceLike = "cpu") -> Dict[str, Tensor]:
-        """Random prompt tokens from a CPU ``torch.Generator`` seeded with
-        ``seed``, so the same seed gives the same tokens on every device
-        (the labels and mask of the reference's batch come with
-        training)."""
+        """Random tokens from a CPU ``torch.Generator`` seeded with
+        ``seed``, so the same seed gives the same tokens on every device,
+        with the reference's labels (the tokens shifted left, 0 last) and
+        mask (1, the last position 0)."""
         gen = torch.Generator()
         gen.manual_seed(seed)
         tokens = torch.randint(0, self.cfg.vocab_size, (batch, seq),
                                generator=gen)
-        return {"tokens": tokens.to(torch.device(device))}
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                           dim=1)
+        mask = torch.ones(batch, seq)
+        mask[:, -1] = 0.0
+        dev = torch.device(device)
+        return {"tokens": tokens.to(dev), "labels": labels.to(dev),
+                "mask": mask.to(dev)}
 
 
 def build_model(arch: str, smoke: bool = False) -> Model:

@@ -12,8 +12,10 @@ RG-LRU (per channel):
 
 The full-sequence recurrence goes through ``kernels.ops.linear_scan``:
 the CUDA kernel for tensors on the card, its plain version on the CPU
-(the wrapper's device decides; there is no switch). Decode is a
-single-step state update and launches no kernel.
+(the wrapper's device decides; there is no switch), differentiable in
+both (its backward is the same scan in reverse time, through the same
+kernel on the card). Decode is a single-step state update and launches
+no kernel.
 """
 from __future__ import annotations
 
@@ -76,11 +78,12 @@ def _gates(params, u: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def rglru_scan(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
-    """h_t = a_t * h_{t-1} + b_t along axis 1 (plain, any device), with an
-    optional carried state ``h0`` (B, D) folded into the first step."""
+    """h_t = a_t * h_{t-1} + b_t along axis 1 through
+    ``ops.linear_scan`` (differentiable), with an optional carried state
+    ``h0`` (B, D) folded into the first step."""
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
-    return ops.linear_scan_plain(a, b)
+    return ops.linear_scan(a, b)
 
 
 def rglru_prefill(params, x: Tensor, cfg: ModelConfig

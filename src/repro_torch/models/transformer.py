@@ -1,23 +1,26 @@
-"""Decoder assembled from blocks, with a prefill that fills the decode
-cache and a one-token decode step (the port's copy of the serving parts
-of ``repro/models/transformer.py``).
+"""Decoder assembled from blocks, with the chunked LM loss, a prefill
+that fills the decode cache and a one-token decode step (the port's copy
+of ``repro/models/transformer.py`` for decoder-only models).
 
 The reference stacks the layers of repeated pattern cycles into
 ``scanned`` groups for ``lax.scan``; PyTorch loops in Python, so the port
 keeps one list, ``params["layers"][i]`` and ``cache["layers"][i]``
-(``repro_torch.convert`` unstacks). ``loss_fn`` and ``encode`` wait for
-the training and Whisper slices.
+(``repro_torch.convert`` unstacks). ``encode`` waits for the Whisper
+slice.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
-from repro_torch.models.common import dense_init, rms_norm, softcap
+from repro_torch.models.common import (chunked_cross_entropy, dense_init,
+                                       remat, rms_norm, softcap)
+from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -26,14 +29,14 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port does not run yet."""
     if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models come with Whisper "
-                                  "(ROADMAP.md A.10)")
+        raise NotImplementedError("encoder-decoder models (Whisper's "
+                                  "encoder) are not ported yet")
     if cfg.vis_tokens:
-        raise NotImplementedError("the VLM prefix is not ported yet "
-                                  "(ROADMAP.md A.10)")
+        raise NotImplementedError("the VLM image prefix (PaliGemma) is not "
+                                  "ported yet")
     if cfg.rope_theta <= 0 and cfg.family != "ssm":
-        raise NotImplementedError("sinusoidal positions come with Whisper "
-                                  "(ROADMAP.md A.10)")
+        raise NotImplementedError("sinusoidal positions (Whisper) are not "
+                                  "ported yet")
     for i, lt in enumerate(cfg.layer_types()):
         blocks.check_layer(lt, cfg.is_moe_layer(i))
 
@@ -62,13 +65,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
 def param_count(params: Params) -> int:
     """The number of weights actually held (the config's analytic
     ``param_count`` undercounts the RG-LRU layers and ``final_norm``)."""
-    def count(tree) -> int:
-        if isinstance(tree, torch.Tensor):
-            return tree.numel()
-        if isinstance(tree, dict):
-            return sum(count(v) for v in tree.values())
-        return sum(count(v) for v in tree)
-    return count(params)
+    return sum(x.numel() for x in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------
@@ -92,11 +89,14 @@ def _run_layers(params, cfg: ModelConfig, x: Tensor, *,
                 max_len: Optional[int] = None
                 ) -> Tuple[Tensor, Optional[List[Params]]]:
     """Apply all decoder layers over positions 0..T-1; with ``max_len``
-    also each layer's decode cache."""
+    also each layer's decode cache. Without it and with ``cfg.remat``,
+    each layer is rematerialized in the backward (the reference's
+    ``jax.checkpoint`` per layer): only the layer boundaries are saved."""
     caches = [] if max_len is not None else None
     for lp, lt in zip(params["layers"], cfg.layer_types()):
         if max_len is None:
-            x, _ = blocks.layer_forward(lp, x, cfg=cfg, layer_type=lt)
+            fwd = partial(blocks.layer_forward, cfg=cfg, layer_type=lt)
+            x, _ = remat(fwd, lp, x) if cfg.remat else fwd(lp, x)
         else:
             x, c = blocks.layer_prefill(lp, x, cfg=cfg, layer_type=lt,
                                         max_len=max_len)
@@ -114,6 +114,29 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Tensor]
     h, _ = _run_layers(params, cfg, x)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, torch.zeros((), dtype=torch.float32, device=h.device), 0
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor],
+            loss_chunk: int = 512) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token LM loss (+ the MoE aux, 0 here). ``batch``: tokens
+    (B, S), optional labels and mask (default: the tokens shifted left,
+    the last position masked)."""
+    h, aux, off = forward_hidden(params, cfg, batch)
+    tokens = batch["tokens"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                           dim=1)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+        mask[:, -1] = 0.0
+    lm = chunked_cross_entropy(
+        lambda hc: logits_fn(params, cfg, hc), h[:, off:], labels,
+        mask.to(torch.float32), chunk=loss_chunk,
+        logit_softcap_val=cfg.logit_softcap)
+    return lm + aux, {"lm_loss": lm, "aux_loss": aux}
 
 
 def prefill_hidden(params, cfg: ModelConfig, tokens: Tensor, max_len: int

@@ -16,8 +16,8 @@ Tensor = torch.Tensor
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("sharded serving is not ported yet "
-                                  "(ROADMAP.md A.8, A.10); pass mesh=None")
+        raise NotImplementedError("sharded serving over a mesh is not "
+                                  "ported yet; pass mesh=None")
 
 
 def make_serve_step(model: Model, mesh=None) -> Tuple[Callable, None]:

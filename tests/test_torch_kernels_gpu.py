@@ -161,6 +161,87 @@ def test_cuda_linear_scan_segments_and_batch_match_plain(cuda, dtype, bsz,
     assert ops.linear_scan.launches == before + 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bsz,t,d", [(1, 4096, 2560), (3, 1000, 130),
+                                     (2, 1, 33)])
+def test_cuda_linear_scan_backward_matches_plain(cuda, dtype, bsz, t, d):
+    """``LinearScan``'s backward on the card (the reverse scan, one launch
+    of the same kernel, counted by ``linear_scan_bwd``) against autograd
+    through ``linear_scan_plain``: ∂a and ∂b within 1e-5 in fp32 and
+    5e-2 in bf16 (g is rounded to bf16 once, then ∂a once more). T = 1:
+    ∂a is 0."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    a = (0.1 + 0.89 * torch.rand(bsz, t, d, generator=gen, device=cuda)
+         ).to(_TDT[dtype])
+    b = torch.randn(bsz, t, d, generator=gen, device=cuda).to(_TDT[dtype])
+    dh = torch.randn(bsz, t, d, generator=gen, device=cuda).to(_TDT[dtype])
+    ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = (ops.linear_scan.launches, ops.linear_scan_bwd.launches)
+    h = ops.linear_scan(ar, br)
+    assert h.grad_fn is not None
+    da, db = torch.autograd.grad(h, (ar, br), dh)
+    assert (ops.linear_scan.launches, ops.linear_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ap, bp = a.clone().requires_grad_(), b.clone().requires_grad_()
+    want = torch.autograd.grad(ops.linear_scan_plain(ap, bp), (ap, bp), dh,
+                               allow_unused=True, materialize_grads=True)
+    assert da.dtype == db.dtype == _TDT[dtype]
+    _close(db, want[1], _TOL[dtype])
+    _close(da, want[0], _TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_two_runs_of_one_seed_are_identical(cuda):
+    """Two same-seed ``run_simulation`` runs of the headline path on the
+    card (full width, 3 rounds), with cuDNN left by the caller on
+    PyTorch's defaults (any algorithm, the autotuner on): the entry point
+    restricts it to deterministic algorithms itself, so the round lines
+    (masks, bytes, $, digests) are identical, the reputation equal and the
+    final params equal bit for bit."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.federated import make_data, run_simulation, simulation
+    from repro_torch.telemetry import ListSink, Telemetry, encode
+
+    fl = FLConfig(attack="label_flip", malicious_frac=0.3, compressor="topk",
+                  compress_ratio=0.1, link_policy="cross_only")
+    data = make_data(fl)
+    runs = []
+    make = simulation.FLServer
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        for _ in range(2):
+            made = []
+
+            def build(*args, **kw):
+                made.append(make(*args, **kw))
+                return made[-1]
+            simulation.FLServer = build
+            torch.backends.cudnn.deterministic = False
+            torch.backends.cudnn.benchmark = True
+            sink = ListSink()
+            res = run_simulation(fl, rounds=3, eval_every=3, data=data,
+                                 device=cuda, engine="jit",
+                                 telemetry=Telemetry(sink))
+            assert torch.backends.cudnn.deterministic
+            assert not torch.backends.cudnn.benchmark
+            runs.append((res, [encode(e) for e in sink.events
+                               if e["event"] == "round"],
+                         {k: v.cpu() for k, v in made[0].params.items()}))
+    finally:
+        simulation.FLServer = make
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    (r0, lines0, p0), (r1, lines1, p1) = runs
+    assert len(lines0) == 3 and lines0 == lines1
+    assert (r0.total_cost, r0.intra_bytes, r0.cross_bytes) == \
+        (r1.total_cost, r1.intra_bytes, r1.cross_bytes)
+    assert np.array_equal(r0.reputation, r1.reputation)
+    assert p0.keys() == p1.keys()
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+
+
 def _stage_inputs(cuda, m, d, lo, length, case, seed=7, k=3, spread=True):
     """Trust-stage inputs on the card: the wire (m, d) with the last layer
     at [lo, lo + length), its rows' norms and alignments with their

@@ -168,12 +168,15 @@ def test_full_width_layout_and_true_parameter_count():
 
 
 def test_unported_arch_and_layers_raise():
-    with pytest.raises(KeyError, match="A.10"):
-        get_arch("gemma2-2b")
+    with pytest.raises(KeyError, match="'rwkv6-1.6b' is not ported yet"):
+        get_arch("rwkv6-1.6b")
     base = CFG
-    for override in (dict(block_pattern=("W",)), dict(n_experts=4),
-                     dict(enc_layers=2), dict(vis_tokens=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+    for override, words in ((dict(block_pattern=("W",)), "RWKV6"),
+                            (dict(n_experts=4), "MoE FFN layers"),
+                            (dict(enc_layers=2), "encoder-decoder"),
+                            (dict(vis_tokens=8), "VLM image prefix")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{words}.* not ported yet"):
             Model(replace(base, **override)).init(0, device="cpu")
 
 
