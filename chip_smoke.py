@@ -57,7 +57,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    recurrentgemma-2b's test configuration, the card (linear_scan forward
    and backward kernels) against the CPU from the same weights and batch:
    ``Model.grad_fn``'s loss and every gradient leaf within 1e-4
-   relative, then one ``make_plain_step`` with AdamW and its loss;
+   relative, then one ``make_plain_step`` with AdamW and its loss; then
+   one two-phase and one fused federated step (``train.make_fl_train_step``:
+   4 clients in 2 clouds, 3 selected, SGD, Ω given) at both test
+   configurations on one rank holding the card's NCCL and the CPU's gloo
+   groups, the card against the CPU: the selected mask exact, the cost
+   units within 1e-6 relative, the loss, phi, trust, beta and reputation
+   within 1e-5, the params within 1e-4, the scan launches as predicted;
+   and that two gradients of one batch are bit-identical on the card;
 5. main paths, with every launch counter reset just before the path and
    read just after it:
    * HEADLINE and DEFENSE, each five rounds of ``FLServer.run_round``
@@ -120,6 +127,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      layers, forward and rematerialized forward) and 18 linear_scan_bwd,
      every FL kernel never; the loss finite and lower at the last step
      than at the first; step ms, tokens/s and peak memory;
+   * FL_TRAIN_TWO_PHASE and FL_TRAIN_FUSED: the same model, optimizer and
+     token stream through ``train.make_fl_train_step`` (4 clients of
+     1 x 2048 tokens in 2 clouds, 3 selected, one 2048-token reference
+     sequence a cloud, one NCCL rank): one warm-up step and 2 timed ones;
+     the two-phase step launches linear_scan 36 and linear_scan_bwd 18
+     per gradient evaluation (N + K in pass A, one per weighted client
+     or falling-back cloud in pass B, read off the step's metrics), the
+     fused step 72 and 18, every FL kernel never; the loss finite, the
+     reputation summing to about 1; step ms, client tokens/s, peak
+     memory; FL_TRAIN_TWO_PHASE first checks that two full-width
+     gradients of one client's batch are bit-identical;
+   * FL_TRAIN_EXAMPLE: ``examples/federated_llm_train_torch.py`` at its
+     defaults (60 steps); no kernel; the loss falls and the attacker's
+     reputation ends below the honest mean;
 6. telemetry (between the FL paths and SERVE): HEADLINE, DEFENSE and
    HOST_HEADLINE, ``ROUNDS`` rounds each through ``run_simulation`` with
    a JSONL and a list sink — every event valid, the JSONL file the
@@ -297,6 +318,16 @@ SERVE_PATHS = {
 # then STEPS timed ones
 TRAIN = dict(arch="recurrentgemma-2b", batch=2, seq=2048, warmup=1, steps=3,
              lr=3e-4, clip=1.0, loss_chunk=512, stream_tokens=50_000, seed=0)
+# the federated train paths: the same model, optimizer and token stream
+# as TRAIN through the Cost-TrustFL step of each strategy, 4 clients of
+# 1 x 2048 tokens in 2 clouds, 3 selected, one 2048-token reference
+# sequence a cloud; one warm-up step, then STEPS timed ones
+FL_TRAIN = dict(TRAIN, clients=4, clouds=2, selected=3, per=1, ref_rows=1,
+                steps=2)
+FL_TRAIN_PATHS = {"fl_train_two_phase": "two_phase",
+                  "fl_train_fused": "fused"}
+# examples/federated_llm_train_torch.py at its own defaults
+FL_EXAMPLE = dict(steps=60, seq=128, d_model=256, layers=4)
 
 
 class PhaseError(RuntimeError):
@@ -1394,6 +1425,306 @@ def train_path_phase(torch, ops, dev):
         finite=bool(np.isfinite(losses).all()))
 
 
+def _fl_counts(metrics, n_clients: int, n_clouds: int) -> int:
+    """The two-phase step's gradient evaluations, read off its metrics:
+    pass A's N clients and K references, then pass B's clients with a
+    weight (trust > 0 in a cloud with β̂ > 0) and clouds falling back on
+    their reference (trust summing to 0, β̂ > 0)."""
+    trust = metrics["trust"].cpu().tolist()
+    beta = metrics["beta"].cpu().tolist()
+    cpc = n_clients // n_clouds
+    ts_cloud = [sum(trust[c * cpc:(c + 1) * cpc]) for c in range(n_clouds)]
+    weighted = sum(ts > 0 and beta[i // cpc] > 0
+                   for i, ts in enumerate(trust))
+    fallback = sum(ts_cloud[c] <= 1e-12 and beta[c] > 0
+                   for c in range(n_clouds))
+    return n_clients + n_clouds + weighted + fallback
+
+
+def fl_scan_launches(strategy: str, cfg, metrics, n_clients: int,
+                     n_clouds: int):
+    """(linear_scan, linear_scan_bwd) launches of one federated step of a
+    model with n_r "R" layers: per gradient evaluation n_r backward and
+    n_r forward, twice that with every layer rematerialized (the forward
+    and its rerun); the fused step's two forwards without gradients (the
+    clients' signatures, the references') n_r each, then one evaluation."""
+    n_r = cfg.layer_types().count("R")
+    fwd = n_r * (2 if cfg.remat else 1)
+    if strategy == "fused":
+        return 2 * n_r + fwd, n_r
+    evals = _fl_counts(metrics, n_clients, n_clouds)
+    return fwd * evals, n_r * evals
+
+
+def grads_bit_stable(torch, model, params, batch, chunk: int):
+    """``Model.grad_fn`` twice on one batch — whether pass B of the
+    two-phase step recomputes the gradient pass A measured: the leaves
+    equal bit for bit, the leaves, the largest |difference|, and each
+    call's ms (host clock between synchronizations: one gradient
+    evaluation)."""
+    from repro_torch.tree import tree_leaves
+
+    grad = model.grad_fn(chunk)
+    grads, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads.append(tree_leaves(grad(params, batch)[1]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    first, second = grads
+    return dict(
+        equal_leaves=sum(bool(torch.equal(a, b))
+                         for a, b in zip(first, second)),
+        leaves=len(first), grad_ms=ms,
+        max_abs_diff=max(float((a - b).abs().max())
+                         for a, b in zip(first, second)))
+
+
+def fl_train_agreement_phase(torch, ops, dev, seq: int = 96,
+                             chunk: int = 40):
+    """One two-phase and one fused federated step (4 clients in 2 clouds,
+    3 selected, SGD) at recurrentgemma-2b's test configuration and at the
+    dense test configuration, on one rank holding the card's NCCL and the
+    CPU's gloo groups: the card against the CPU from the same weights,
+    batches and Ω — the selected mask exact, the cost units within 1e-6
+    relative, the loss, φ, trust, β and reputation within 1e-5, the
+    params within 1e-4; the card's scan launches as
+    :func:`fl_scan_launches` predicts, none on the CPU. Then that two
+    gradients of one batch are bit-identical on the card."""
+    import numpy as np
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.federated import sharded
+    from repro_torch.optim import sgd
+    from repro_torch.train import ClientMesh, draw_omega, make_fl_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    fl = FLConfig(n_clouds=2, clients_per_round=3)
+    sharded.ensure_group(dev)
+    worst, out = {}, {}
+    for cfg_name, model in (("rg", _serve_test_model()),
+                            ("dense", _dense_test_model())):
+        p_cpu = model.init(0, device=cpu)
+        omega = draw_omega(1, model.cfg.vocab_size, fl.sketch_dim, cpu)
+        batch = model.dummy_batch(1, 4, seq)
+        ref = {k: v.reshape((2, 1) + tuple(v.shape[1:]))
+               for k, v in model.dummy_batch(2, 2, seq).items()}
+        for strategy in ("two_phase", "fused"):
+            runs = {}
+            for side, d in (("host", cpu), ("card", dev)):
+                params = tree_map(lambda x: x.to(d, copy=True), p_cpu)
+                opt = sgd(0.05)
+                step, topo = make_fl_train_step(
+                    model, ClientMesh(4), fl, opt, strategy=strategy,
+                    loss_chunk=chunk)
+                rep = torch.tensor([0.3, 0.2, 0.25, 0.25], device=d)
+                key = (omega,) if strategy == "fused" else ()
+                ops.reset_launch_counts()
+                params, _, rep, met = step(
+                    params, opt[0](params), rep,
+                    {k: v.to(d) for k, v in batch.items()},
+                    {k: v.to(d) for k, v in ref.items()}, *key)
+                counts = ops.launch_counts()
+                runs[side] = dict(
+                    met={k: v.cpu() for k, v in met.items()}, rep=rep.cpu(),
+                    params=[p.cpu() for p in tree_leaves(params)],
+                    scans=(counts["linear_scan"], counts["linear_scan_bwd"]),
+                    others=sum(v for k, v in counts.items()
+                               if not k.startswith("linear_scan")))
+            host, card = runs["host"], runs["card"]
+            what = f"fl_train agreement {cfg_name} {strategy}"
+            want = fl_scan_launches(strategy, model.cfg, card["met"], 4, 2)
+            check(card["scans"] == want and host["scans"] == (0, 0)
+                  and card["others"] == 0 == host["others"],
+                  f"{what}: scan launches {card['scans']} on the card "
+                  f"(expected {want}), {host['scans']} on the CPU, FL "
+                  f"kernels {card['others']}")
+            check(np.array_equal(card["met"]["selected"].numpy(),
+                                 host["met"]["selected"].numpy()),
+                  f"{what}: selected masks differ")
+            drift = {k: rel_err(torch, card["met"][k], host["met"][k])
+                     for k in ("loss", "phi", "trust", "beta")}
+            drift["rep"] = rel_err(torch, card["rep"], host["rep"])
+            cost = rel_err(torch, card["met"]["round_cost_units"],
+                           host["met"]["round_cost_units"])
+            params = max(rel_err(torch, a, b) for a, b in
+                         zip(card["params"], host["params"]))
+            check(max(drift.values()) <= 1e-5 and cost <= 1e-6
+                  and params <= 1e-4,
+                  f"{what}: card vs CPU drift {drift}, cost units {cost}, "
+                  f"params {params}")
+            worst[f"{cfg_name}_{strategy}"] = dict(
+                drift, round_cost_units=cost, params=params,
+                scan_launches=card["scans"])
+        p_dev = tree_map(lambda x: x.to(dev), p_cpu)
+        b_dev = {k: v[:1].to(dev) for k, v in batch.items()}
+        stable = grads_bit_stable(torch, model, p_dev, b_dev, chunk)
+        check(stable["equal_leaves"] == stable["leaves"],
+              f"fl_train agreement {cfg_name}: two gradients of one batch "
+              f"differ on the card: {stable}")
+        out[f"{cfg_name}_grads_bit_stable"] = stable
+    end_group()
+    worst.update(out)
+    return worst
+
+
+def fl_train_path_phase(torch, ops, dev, path: str):
+    """``FL_TRAIN`` through ``train.make_fl_train_step`` (the strategy
+    ``FL_TRAIN_PATHS[path]``): recurrentgemma-2b at full width (26 layers,
+    fp32, ``remat``), AdamW as ``TRAIN`` uses it, 4 clients of 1 x 2048
+    tokens in 2 clouds, 3 selected, one 2048-token reference sequence a
+    cloud, all on one NCCL rank the step starts and ends; one warm-up
+    step, then ``FL_TRAIN["steps"]`` timed ones. The launch counters are
+    reset just before each step and read just after: linear_scan and
+    linear_scan_bwd as :func:`fl_scan_launches` predicts, every FL kernel
+    never. The loss finite, the reputation summing to about 1. The
+    two-phase path first checks that two gradients of one client's batch
+    are bit-identical at full width (pass B recomputes pass A's)."""
+    import math
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data import make_token_stream, token_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, clip_by_global_norm, cosine_schedule
+    from repro_torch.train import ClientMesh, make_fl_train_step
+
+    ft, strategy = FL_TRAIN, FL_TRAIN_PATHS[path]
+    model = build_model(ft["arch"])
+    cfg = model.cfg
+    check(cfg.remat and cfg.num_layers == 26,
+          f"{path}: {cfg.num_layers} layers, remat {cfg.remat}")
+    n, k, per, seq = ft["clients"], ft["clouds"], ft["per"], ft["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(ft["seed"], device=dev, dtype=torch.float32)
+    stream = make_token_stream(ft["stream_tokens"], cfg.vocab_size,
+                               seed=ft["seed"])
+    windows = token_batches(stream, batch=n * per + k * ft["ref_rows"],
+                            seq=seq, seed=ft["seed"])
+
+    def batches():
+        toks = torch.tensor(next(windows), device=dev).long()
+        rows = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "mask": torch.ones(toks.shape[0], seq, device=dev)}
+        batch = {key: v[:n * per] for key, v in rows.items()}
+        ref = {key: v[n * per:].reshape((k, ft["ref_rows"], seq))
+               for key, v in rows.items()}
+        return batch, ref
+
+    stable = None
+    if strategy == "two_phase":
+        batch, _ = batches()
+        stable = grads_bit_stable(
+            torch, model, params, {key: v[:per] for key, v in batch.items()},
+            ft["loss_chunk"])
+        check(stable["equal_leaves"] == stable["leaves"],
+              f"{path}: two gradients of one client's batch differ: "
+              f"{stable}")
+    init, update = adamw(cosine_schedule(ft["lr"], warmup=ft["warmup"],
+                                         total=ft["warmup"] + ft["steps"]))
+
+    def clipped_update(grads, state, p):
+        return update(clip_by_global_norm(grads, ft["clip"])[0], state, p)
+    opt_state = init(params)
+    fl = FLConfig(n_clouds=k, clients_per_round=ft["selected"])
+    step, topo = make_fl_train_step(model, ClientMesh(n), fl,
+                                    (init, clipped_update),
+                                    strategy=strategy,
+                                    loss_chunk=ft["loss_chunk"])
+    check((topo.n_clients, topo.n_clouds) == (n, k),
+          f"{path}: topology {topo}")
+    rep = torch.full((n,), 1.0 / n, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counts = {name: 0 for name in ops.launch_counts()}
+    losses, step_s, per_step, evals = [], [], [], []
+    with step:
+        for i in range(ft["warmup"] + ft["steps"]):
+            batch, ref = batches()
+            key = (ft["seed"] + i,) if strategy == "fused" else ()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            params, opt_state, rep, met = step(params, opt_state, rep, batch,
+                                               ref, *key)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            got = ops.launch_counts()
+            scan, bwd = fl_scan_launches(strategy, cfg, met, n, k)
+            want = {name: 0 for name in got}
+            want.update(linear_scan=scan, linear_scan_bwd=bwd)
+            check(got == want, f"{path} step {i}: launches {got}, expected "
+                  f"{want}")
+            per_step.append(got)
+            evals.append(_fl_counts(met, n, k) if strategy == "two_phase"
+                         else 1)
+            counts = {name: counts[name] + got[name] for name in counts}
+            losses.append(float(met["loss"]))
+            rep_sum = float(rep.sum())
+            check(math.isfinite(losses[-1]) and abs(rep_sum - 1.0) < 0.1,
+                  f"{path} step {i}: loss {losses[-1]}, reputation sum "
+                  f"{rep_sum}")
+            if i >= ft["warmup"]:
+                step_s.append(dt)
+    check(int(opt_state.step) == ft["warmup"] + ft["steps"],
+          f"{path}: optimizer step {int(opt_state.step)}")
+    for key_, v in (("embed", params["embed"]),
+                    ("final_norm", params["final_norm"])):
+        check(bool(torch.isfinite(v).all()), f"{path}: {key_} not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {key_: v.cpu().tolist() for key_, v in met.items()}
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    tokens = n * per * seq
+    return counts, dict(
+        arch=ft["arch"], strategy=strategy, setup_s=setup_s, losses=losses,
+        step_s=step_s, step_ms=1e3 * statistics.median(step_s),
+        tokens_per_s=tokens / statistics.median(step_s), peak_gib=peak,
+        launches_per_step=per_step, grad_evals_per_step=evals,
+        grads_bit_stable=stable, rep=rep.cpu().tolist(), metrics=metrics)
+
+
+def fl_example_phase(torch, ops, dev):
+    """``examples/federated_llm_train_torch.py`` as its users run it on
+    the card (``FL_EXAMPLE``: 60 steps of the two-phase step, a 4-layer
+    gemma2-layout model of d_model 256, 4 cohorts in 2 clouds, cohort 3
+    flipping its tokens), the counters reset just before and read just
+    after: every kernel never (a dense model); the loss finite and lower
+    at the end; the attacker's reputation below the honest mean (the
+    reference's example puts it there at this seed on the CPU)."""
+    import importlib.util
+    import math
+
+    spec = importlib.util.spec_from_file_location(
+        "federated_llm_train_torch",
+        ROOT / "examples" / "federated_llm_train_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    ex = FL_EXAMPLE
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = example.main(["--steps", str(ex["steps"]), "--seq", str(ex["seq"]),
+                        "--d-model", str(ex["d_model"]),
+                        "--layers", str(ex["layers"]), "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"fl_train_example: launches {counts}, expected none")
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"fl_train_example: losses {losses[0]} -> {losses[-1]}")
+    check(res["detected"], f"fl_train_example: attacker reputation "
+          f"{res['attacker']} not below the honest mean {res['honest']}")
+    return counts, dict(wall_s=wall_s, s_per_step=wall_s / ex["steps"],
+                        attacker=res["attacker"], honest=res["honest"],
+                        detected=res["detected"], loss_first=losses[0],
+                        loss_last=losses[-1], rep=res["rep"].cpu().tolist())
+
+
 def main_path_phase(torch, ops, dev, path: str):
     """``ROUNDS`` full-width rounds of ``path`` through ``FLServer``, the
     launch counters reset just before and read just after."""
@@ -1997,6 +2328,14 @@ def main() -> int:
     print(f"agreement card vs CPU, one AdamW train step (fp32, test "
           f"configuration): {worst['train']} "
           f"({phase_s['agreement_train']:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    worst["fl_train"] = fl_train_agreement_phase(torch, ops, dev)
+    phase_s["agreement_fl_train"] = time.perf_counter() - t0
+    print(f"agreement card vs CPU, one two-phase and one fused federated "
+          f"step (4 clients, 2 clouds, SGD, fp32, test configurations), "
+          f"and two gradients of one batch on the card leaf for leaf: "
+          f"{worst['fl_train']} "
+          f"({phase_s['agreement_fl_train']:.1f} s)", flush=True)
     counts, main = {}, {}
     for path in PATHS:
         counts[path], main[path] = main_path_phase(torch, ops, dev, path)
@@ -2053,6 +2392,28 @@ def main() -> int:
           f"{tr['tokens_per_s']:.1f} tokens/s, peak {tr['peak_gib']:.3f} "
           f"GiB; launches per step {tr['launches_per_step']} "
           f"({phase_s['train']:.1f} s)", flush=True)
+
+    for path in FL_TRAIN_PATHS:
+        t0 = time.perf_counter()
+        counts[path], main[path] = fl_train_path_phase(torch, ops, dev, path)
+        phase_s[path] = time.perf_counter() - t0
+        ft = main[path]
+        print(f"main path {path}: launches {counts[path]}; {ft}", flush=True)
+        print(f"main path {path} ({FL_TRAIN['arch']}, fp32, "
+              f"{FL_TRAIN['clients']} clients x {FL_TRAIN['seq']} tokens, "
+              f"{card}): losses {[round(x, 4) for x in ft['losses']]}, step "
+              f"{ft['step_ms']:.1f} ms (median of {FL_TRAIN['steps']}), "
+              f"{ft['tokens_per_s']:.1f} client tokens/s, peak "
+              f"{ft['peak_gib']:.3f} GiB; gradient evaluations per step "
+              f"{ft['grad_evals_per_step']}; gradients bit-stable "
+              f"{ft['grads_bit_stable']} ({phase_s[path]:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    counts["fl_train_example"], main["fl_train_example"] = \
+        fl_example_phase(torch, ops, dev)
+    phase_s["fl_train_example"] = time.perf_counter() - t0
+    ex = main["fl_train_example"]
+    print(f"main path fl_train_example ({FL_EXAMPLE['steps']} steps, {card}):"
+          f" {ex} ({phase_s['fl_train_example']:.1f} s)", flush=True)
 
     # launches: the sum over the paths' runs (each read right after its
     # path, counters reset right before); per path beside it. The fused

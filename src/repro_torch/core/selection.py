@@ -3,12 +3,13 @@
 S = argmax_{|S|<=m} Σ_{i∈S} r̂_i / c_i^λ — separable, so the exact optimum
 is the top-m of the ratio, here with the per-cloud exploration quota and
 the multiplicative tie-break noise. ``select_clients`` is the tensor form
-of the reference's jittable variant, which the round engine runs; its
-noise is an input (the caller draws it or replays the reference's draw,
-because ``torch.topk`` does not promise an order among exact ties and
-round 0 has all-equal reputations). ``select_clients_host`` is the numpy
-form the host round loop runs, drawing its noise from the round's
-``np.random.Generator``.
+of the reference's jittable variant, which the round engine and the LLM
+train steps run; its noise is an input (the caller draws it or replays
+the reference's draw). Among exact ties it keeps ``lax.top_k``'s order,
+the lower index first: the LLM steps select without noise, and there a
+uniform reputation over clouds of equal unit costs ties whole clouds.
+``select_clients_host`` is the numpy form the host round loop runs,
+drawing its noise from the round's ``np.random.Generator``.
 """
 from __future__ import annotations
 
@@ -37,6 +38,13 @@ def selected_count(n: int, m: int, per_cloud_min: int = 0,
     return max(m, quota)
 
 
+def _top(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of ``x``, the lower index
+    first among equal values (``lax.top_k``'s order; ``torch.topk``
+    promises none): a stable descending sort."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]
+
+
 def select_clients(reputation: torch.Tensor, unit_costs: torch.Tensor,
                    m: int, cost_lambda: float = 1.0, *,
                    per_cloud_min: int = 0,
@@ -54,7 +62,7 @@ def select_clients(reputation: torch.Tensor, unit_costs: torch.Tensor,
     m = min(m, n)
     chosen = torch.zeros(n, dtype=torch.bool, device=ratio.device)
     if not per_cloud_min or cloud_of is None:
-        chosen[torch.topk(ratio, m).indices] = True
+        chosen[_top(ratio, m)] = True
         return chosen
     cloud_of = np.asarray(cloud_of)
     neg_inf = torch.tensor(-float("inf"), dtype=ratio.dtype,
@@ -64,11 +72,11 @@ def select_clients(reputation: torch.Tensor, unit_costs: torch.Tensor,
         in_k = torch.as_tensor(cloud_of == k, device=ratio.device)
         q = min(per_cloud_min, int(in_k.sum()))
         quota_total += q
-        chosen[torch.topk(torch.where(in_k, ratio, neg_inf), q).indices] = True
+        chosen[_top(torch.where(in_k, ratio, neg_inf), q)] = True
     remaining = m - quota_total
     if remaining > 0:
         masked = torch.where(chosen, neg_inf, ratio)
-        chosen[torch.topk(masked, remaining).indices] = True
+        chosen[_top(masked, remaining)] = True
     return chosen
 
 

@@ -131,6 +131,31 @@ def mesh_axes(n_clouds: int, n_clients: int,
     return kc, n_devices // kc
 
 
+def group_ranks(group: Optional[dist.ProcessGroup] = None) -> list:
+    """The global ranks of ``group`` (default: the default group's)."""
+    return (dist.get_process_group_ranks(group) if group is not None
+            else list(range(dist.get_world_size())))
+
+
+def mesh_groups(group: Optional[dist.ProcessGroup], kc: int, pc: int
+                ) -> Tuple[dist.ProcessGroup, dist.ProcessGroup]:
+    """This rank's ``client`` group (its mesh column: the ranks of its
+    cloud index, which own whole clouds) and ``cloud`` group (its mesh
+    row: one rank per column) on the kc x pc mesh of ``group``'s ranks
+    (default: the default group), rank r = cloud_idx·pc + client_idx.
+    Each rank builds its own two, in any order (local synchronization)."""
+    ranks = group_ranks(group)
+    cloud_idx, client_idx = divmod(dist.get_rank(group), pc)
+    backend = None if group is None else dist.get_backend(group)
+    client_group = dist.new_group(
+        [ranks[cloud_idx * pc + j] for j in range(pc)],
+        backend=backend, use_local_synchronization=True)
+    cloud_group = dist.new_group(
+        [ranks[c * pc + client_idx] for c in range(kc)],
+        backend=backend, use_local_synchronization=True)
+    return client_group, cloud_group
+
+
 def _even_contiguous(topo: CloudTopology) -> bool:
     """Cloud k owns clients [k·n_k, (k+1)·n_k) (``CloudTopology.even``)."""
     n, k = topo.n_clients, topo.n_clouds
@@ -224,22 +249,14 @@ class ShardEngine:
         self.eng = eng = Engine(st, device)
         self.device = dev = eng.device
         self.group = group
-        ranks = (dist.get_process_group_ranks(group) if group is not None
-                 else list(range(dist.get_world_size())))
-        n_ranks = len(ranks)
+        n_ranks = len(group_ranks(group))
         if n_ranks != ss.kc * ss.pc:
             raise ValueError(f"the group has {n_ranks} ranks; the mesh "
                              f"{ss.kc} x {ss.pc} needs {ss.kc * ss.pc}")
         self.rank = rank = dist.get_rank(group)
         self.cloud_idx, self.client_idx = divmod(rank, ss.pc)
-        backend = None if group is None else dist.get_backend(group)
-        # my mesh column (the ranks of my cloud index), then my row
-        self.client_group = dist.new_group(
-            [ranks[self.cloud_idx * ss.pc + j] for j in range(ss.pc)],
-            backend=backend, use_local_synchronization=True)
-        self.cloud_group = dist.new_group(
-            [ranks[c * ss.pc + self.client_idx] for c in range(ss.kc)],
-            backend=backend, use_local_synchronization=True)
+        self.client_group, self.cloud_group = mesh_groups(group, ss.kc,
+                                                          ss.pc)
 
         self.n, self.k = eng.n, eng.k
         self.n_loc = self.n // n_ranks

@@ -81,14 +81,16 @@ def remat(fn: Callable, *args):
 def chunked_cross_entropy(logits_fn: Callable[[Tensor], Tensor],
                           hidden: Tensor, labels: Tensor, mask: Tensor, *,
                           chunk: int = 512,
-                          logit_softcap_val: float = 0.0) -> Tensor:
+                          logit_softcap_val: float = 0.0,
+                          denom: Optional[Tensor] = None) -> Tensor:
     """Memory-efficient LM loss: a loop over sequence chunks, each chunk's
     loss rematerialized (:func:`remat`), so the (B, S, vocab) logits are
     never held and the backward keeps one (B, chunk, vocab) chunk at a
     time. ``logits_fn(h_chunk) -> (B, c, V)``; labels/mask: (B, S); a
     remainder S mod ``chunk`` is one last, shorter chunk. Returns the
     mean NLL over masked positions (the reference's sharding hints have
-    no counterpart on one device)."""
+    no counterpart on one device). ``denom`` replaces Σ mask clamped at 1
+    (a rank's share of a loss whose mask spans every rank's rows)."""
     s = hidden.shape[1]
     chunk = min(chunk, s)
     n_chunks = s // chunk
@@ -108,5 +110,6 @@ def chunked_cross_entropy(logits_fn: Callable[[Tensor], Tensor],
     if rem:
         total = total + remat(chunk_loss, hidden[:, -rem:], labels[:, -rem:],
                               mask[:, -rem:])
-    denom = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
     return total / denom
