@@ -65,6 +65,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    units within 1e-6 relative, the loss, phi, trust, beta and reputation
    within 1e-5, the params within 1e-4, the scan launches as predicted;
    and that two gradients of one batch are bit-identical on the card;
+   then the MoE and RWKV6 families at test configurations (mixtral's
+   layout with capacity factor 0.5, so its full-sequence forward drops
+   tokens; llama4's C, C, C, A period at chunk 64 with a 96-token prompt,
+   top-1; rwkv6's 3 "W" layers with a 150-token prompt; d_model 128,
+   fp32), the card against the CPU: the prefill logits and cache, 4
+   greedy decode steps, ``forward_hidden`` with its aux loss and one
+   ``Model.grad_fn`` (loss and every gradient leaf) within 1e-4, the MoE
+   routes (the kept (expert, token) pairs of every capacity selection)
+   exactly equal, no kernel launched;
 5. main paths, with every launch counter reset just before the path and
    read just after it:
    * HEADLINE and DEFENSE, each five rounds of ``FLServer.run_round``
@@ -119,6 +128,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      widths, bf16, weights from seed 0, 2 slots, 4 requests of 4096 + 16
      greedy tokens; every kernel never (no Pallas kernel lies on a dense
      path); the weights held ``param_count()`` + d_model (final_norm);
+   * SERVE_MIXTRAL, SERVE_LLAMA4, SERVE_RWKV6: the same launcher, bf16,
+     at the full published widths of mixtral-8x7b (16 of its 32 layers,
+     8 experts, top-2; 2 slots, 4 requests of 4096 + 16: the window-4096
+     ring wraps in decode), llama4-maverick-400b-a17b (one whole period
+     C, C, C, A with MoE on layers 1 and 3, all 128 experts, top-1, the
+     202,048-row tied embedding; 1 slot, 2 requests of 9216 + 16: the
+     "C" layers' second 8192-token chunk) and rwkv6-1.6b (all 24 layers;
+     2 slots, 4 requests of 4096 + 16), the depth cut by patching the
+     launcher's ``build_model``; every kernel never; the weights held
+     exactly (23,351,398,400 / 33,751,413,760 / 1,483,180,032); less
+     than 2 GiB allocated before each, the weights released after; then
+     one steady prefill and the 16 decode steps after it of each traced
+     with ``torch.profiler`` (device events, busy ms by kernel group,
+     idle share);
    * TRAIN: recurrentgemma-2b at full width (26 layers, fp32 weights,
      every layer rematerialized) through ``train.make_plain_step``,
      AdamW on a cosine schedule after ``clip_by_global_norm(1.0)``,
@@ -297,21 +320,39 @@ OVERHEAD_ROUNDS = 16
 PHASES = ("round.select", "round.train", "round.attack", "round.compress",
           "round.aggregate", "round.account")
 # the serve paths at full width, as the launcher runs them: path ->
-# (launcher arguments, weights held). recurrentgemma-2b holds w_a, w_i and
-# final_norm beyond ModelConfig.param_count(); the dense archs hold
-# param_count() + d_model (final_norm)
+# (launcher arguments, weights held, layers: None for the published depth,
+# else the depth the launcher's model is cut to). recurrentgemma-2b holds
+# w_a, w_i and final_norm beyond ModelConfig.param_count(); the dense and
+# MoE archs hold param_count() + d_model (final_norm); rwkv6-1.6b holds
+# its "W" layers' decay LoRA, w0, u, mixes and channel-mix w_r beyond it.
+# mixtral-8x7b keeps 16 of its 32 layers (43.5 GiB in bf16), llama4 one
+# whole period of 4 (C, C, C, A; MoE on 1 and 3; 62.9 GiB): the published
+# depths do not fit one card
 SERVE = dict(arch="recurrentgemma-2b", batch=4, requests=8, prompt_len=4096,
              gen=16, dtype="bfloat16", seed=0)
 DENSE_SERVE = dict(SERVE, batch=2, requests=4)   # half the traffic
 SERVE_PATHS = {
-    "serve": (SERVE, 2_894_435_840),
+    "serve": (SERVE, 2_894_435_840, None),
     "serve_gemma2": (dict(DENSE_SERVE, arch="gemma2-2b"),
-                     2_614_219_776 + 2304),
+                     2_614_219_776 + 2304, None),
     "serve_danube": (dict(DENSE_SERVE, arch="h2o-danube-3-4b"),
-                     3_838_955_520 + 3840),
+                     3_838_955_520 + 3840, None),
     "serve_granite": (dict(DENSE_SERVE, arch="granite-3-8b"),
-                      8_170_844_160 + 4096),
+                      8_170_844_160 + 4096, None),
+    "serve_mixtral": (dict(DENSE_SERVE, arch="mixtral-8x7b"),
+                      23_351_398_400, 16),
+    # 9216 tokens: the "C" layers' second chunk of 8192
+    "serve_llama4": (dict(DENSE_SERVE, arch="llama4-maverick-400b-a17b",
+                          batch=1, requests=2, prompt_len=9216),
+                     33_751_413_760, 4),
+    "serve_rwkv6": (dict(DENSE_SERVE, arch="rwkv6-1.6b"), 1_483_180_032,
+                    None),
 }
+# the serve paths of the MoE and RWKV6 families: each is also profiled,
+# one steady prefill and its decode steps (``profile_serve``)
+FAMILY_SERVE = ("serve_mixtral", "serve_llama4", "serve_rwkv6")
+# phase 4's test configurations of those families (``_family_test_model``)
+FAMILY_TESTS = ("mixtral", "llama4", "rwkv6")
 # the train path: recurrentgemma-2b at full width in fp32, every layer
 # rematerialized, AdamW on a cosine schedule after global-norm clipping,
 # batches of 2 x 2048 tokens from the token stream; one warm-up step,
@@ -1295,29 +1336,171 @@ def train_agreement_phase(torch, ops, dev, seq: int = 96, chunk: int = 40):
     return worst
 
 
+def _family_test_model(family: str):
+    """(model, prompt length) of phase 4's test configuration of
+    ``family``: mixtral-8x7b's layout (4 "L" layers at window 64, 4
+    experts, top-2) with capacity factor 0.5, so the full-sequence
+    forward drops tokens; llama4's one period (C, C, C, A; MoE on 1 and
+    3; 4 experts, top-1, chunk 64) with a prompt past the chunk; rwkv6's
+    3 "W" layers with a 150-token prompt (two 64-token chunks and a
+    ragged one). d_model 128, fp32."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models.model import Model
+
+    if family == "mixtral":
+        cfg = replace(reduced(get_arch("mixtral-8x7b"), d_model=128,
+                              layers=2), num_layers=4, capacity_factor=0.5)
+        return Model(cfg), 96
+    if family == "llama4":
+        return Model(reduced(get_arch("llama4-maverick-400b-a17b"),
+                             d_model=128, layers=4)), 96
+    return Model(reduced(get_arch("rwkv6-1.6b"), d_model=128, layers=3)), 150
+
+
+@contextmanager
+def recorded_routes():
+    """Every ``models.moe.route`` while open, as (device type, sorted
+    kept (expert, token) pairs, tokens dropped) in call order."""
+    from repro_torch.models import moe
+
+    real, seen = moe.route, []
+
+    def spy(combine, cap):
+        rt = real(combine, cap)
+        seen.append((combine.device.type,
+                     sorted(zip(rt.expert.tolist(), rt.token.tolist())),
+                     int((combine > 0).sum()) - len(rt.token)))
+        return rt
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def _same_routes(seen, dev, what: str):
+    """The card's routes equal the CPU's, call by call; the tokens
+    dropped on the card."""
+    host = [r[1:] for r in seen if r[0] == "cpu"]
+    card = [r[1:] for r in seen if r[0] == dev.type]
+    check(len(host) == len(card) and all(
+        a[0] == b[0] for a, b in zip(host, card)),
+        f"{what}: the kept (expert, token) pairs differ, card vs CPU")
+    return [d for _, d in card]
+
+
+def family_agreement_phase(torch, ops, dev, family: str, chunk: int = 40):
+    """Phase 4 for the MoE and RWKV6 families at their test
+    configurations (``_family_test_model``), the card against the CPU
+    from the same weights: the prefill of two prompts with its cache and
+    4 greedy decode steps (``serve_agreement_phase``), ``forward_hidden``
+    with its aux loss, and one ``Model.grad_fn`` (loss, aux metric and
+    every gradient leaf), all within 1e-4 relative; the MoE routes (the
+    kept (expert, token) pairs of every ``moe.route``) exactly equal; no
+    kernel launched."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model, t = _family_test_model(family)
+    cfg = model.cfg
+    before = ops.launch_counts()
+    with recorded_routes() as seen:
+        worst = serve_agreement_phase(torch, ops, dev, t=t, max_len=t + 8,
+                                      model=model)
+        serve_drops = _same_routes(seen, dev, f"{family} serve")
+        seen.clear()
+        cpu = torch.device("cpu")
+        p_cpu = model.init(0, device=cpu)
+        batch = model.dummy_batch(0, 2, t)
+
+        def run(d, params):
+            b = {k: v.to(d) for k, v in batch.items()}
+            h, aux, _ = tfm.forward_hidden(params, cfg, b)
+            (loss, met), grads = model.grad_fn(chunk)(params, b)
+            return dict(h=h.cpu(), aux=aux.cpu(), loss=loss.cpu(),
+                        aux_metric=met["aux_loss"].cpu(),
+                        grads=[g.cpu() for g in tree_leaves(grads)])
+
+        host = run(cpu, p_cpu)
+        card = run(dev, tree_map(lambda x: x.to(dev, copy=True), p_cpu))
+        forward_drops = _same_routes(seen, dev, f"{family} forward")
+    check(ops.launch_counts() == before,
+          f"{family} agreement: a kernel was launched")
+    for key in ("h", "aux", "loss", "aux_metric"):
+        worst[key] = rel_err(torch, card[key], host[key])
+    worst["grads"] = max(rel_err(torch, a, b)
+                         for a, b in zip(card["grads"], host["grads"]))
+    check(max(v for v in worst.values() if isinstance(v, float)) <= 1e-4,
+          f"{family}: card vs CPU drift {worst} > 1e-4")
+    worst["aux_value"] = float(host["aux"])
+    worst["routes"] = len(serve_drops) + len(forward_drops)
+    worst["dropped_prefill_decode"] = sum(serve_drops)
+    worst["dropped_forward_and_grad"] = sum(forward_drops)
+    if family == "mixtral":
+        check(sum(forward_drops) > 0, "mixtral: the forward dropped nothing")
+    return worst
+
+
+@contextmanager
+def cut_depth(layers):
+    """The serve launcher's ``build_model`` patched to cut the model to
+    ``layers`` layers at its published widths (nothing when None)."""
+    from dataclasses import replace
+
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.model import Model
+
+    real = serve_mod.build_model
+    if layers is not None:
+        serve_mod.build_model = lambda arch, smoke=False: Model(
+            replace(get_arch(arch), num_layers=layers))
+    try:
+        yield
+    finally:
+        serve_mod.build_model = real
+
+
+def check_memory_free(torch, what: str, gib: float = 2.0) -> float:
+    """GiB the caching allocator still holds for tensors; raises when
+    more than ``gib`` (the weights of the path before must be gone)."""
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    check(held <= gib, f"{what}: {held:.3f} GiB still allocated")
+    return held
+
+
 def serve_path_phase(torch, ops, dev, path: str = "serve"):
-    """``launch.serve.serve`` at full width (``SERVE_PATHS[path]``), the
+    """``launch.serve.serve`` at full width (``SERVE_PATHS[path]``, the
+    launcher's model cut to the path's depth where it gives one), the
     launch counters reset just before and read just after: linear_scan
-    once per "R" layer per prefill, every other kernel never (a dense arch
-    launches none); the weights held as stated; peak memory, prefill ms
-    and decode tokens/s."""
+    once per "R" layer per prefill, every other kernel never (a dense,
+    MoE or RWKV6 arch launches none); the weights held as stated; peak
+    memory, prefill ms and decode tokens/s. The weights are released
+    after it (``empty_cache``), and the memory held before it checked."""
     from repro_torch.configs.base import get_arch
     from repro_torch.launch.serve import serve
 
-    sv, held = SERVE_PATHS[path]
+    sv, held, layers = SERVE_PATHS[path]
     cfg = get_arch(sv["arch"])
     torch.cuda.synchronize()
+    before_gib = check_memory_free(torch, path)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve(sv["arch"], batch=sv["batch"], requests=sv["requests"],
-                prompt_len=sv["prompt_len"], gen=sv["gen"], device=dev,
-                dtype=sv["dtype"], seed=sv["seed"])
+    with cut_depth(layers):
+        res = serve(sv["arch"], batch=sv["batch"], requests=sv["requests"],
+                    prompt_len=sv["prompt_len"], gen=sv["gen"], device=dev,
+                    dtype=sv["dtype"], seed=sv["seed"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    n_r = cfg.layer_types()[:layers or cfg.num_layers].count("R")
     want = {n: 0 for n in counts}
-    want["linear_scan"] = sv["requests"] * cfg.layer_types().count("R")
+    want["linear_scan"] = sv["requests"] * n_r
     check(counts == want, f"{path}: launches {counts}, expected {want}")
     check(res.n_params == held,
           f"{path}: {res.n_params} weights, expected {held}")
@@ -1331,9 +1514,9 @@ def serve_path_phase(torch, ops, dev, path: str = "serve"):
     prefill_ms = [r.prefill_s * 1e3
                   for r in sorted(res.requests, key=lambda r: r.rid)]
     return counts, dict(
-        arch=sv["arch"], n_params=res.n_params,
-        analytic_param_count=cfg.param_count(),
-        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        arch=sv["arch"], layers=layers or cfg.num_layers,
+        n_params=res.n_params, analytic_param_count=cfg.param_count(),
+        allocated_before_gib=before_gib, peak_gib=peak_gib,
         init_s=res.init_s, wall_s=wall_s, prefill_ms=prefill_ms,
         prefill_ms_first=prefill_ms[0],
         prefill_ms_steady=statistics.median(prefill_ms[1:]),
@@ -2133,20 +2316,26 @@ def _phase_busy_us(labels, kern):
     return {p: _busy_us(iv) for p, iv in by_phase.items()}
 
 
-def _trace(torch, out, name: str, run, n: int, unit: str):
+def _trace(torch, out, name: str, run, n: int, unit: str,
+           host: bool = True):
     """Run ``run()`` (``n`` units of work) under ``torch.profiler`` and
     report, per unit, the device's busy time by kernel group and by
-    round phase, its idle share of the host-clock wall time and the top
-    kernels; writes the Chrome trace to ``out``/trace_<name>.json when
-    ``out`` is given."""
+    round phase, its idle share of the host-clock wall time, its events
+    (kernels, copies, fills) and the top kernels; writes the Chrome
+    trace to ``out``/trace_<name>.json when ``out`` is given. ``host``
+    also records the host's ops, which the round phases' labels need; a
+    serve path records the device alone (RWKV6's prefill launches
+    ~200,000 kernels, each with several host ops)."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2228,17 +2417,24 @@ def trace_labels_phase(torch, dev, work: Path):
     return dict(labels=list(PHASES), events=len(doc["traceEvents"]))
 
 
-def profile_serve(torch, dev, out):
-    """``--profile``: the serve path at full width — one steady prefill
-    of a 4096-token prompt (after a warm-up prefill and 2 decode steps)
-    and then ``SERVE["gen"]`` decode steps, traced apart (figures per
-    prefill and per decode step)."""
-    from repro_torch.models import build_model
-    from repro_torch.models import transformer as tfm
+def profile_serve(torch, dev, out, path: str = "serve"):
+    """One steady prefill of ``SERVE_PATHS[path]``'s prompt (after a
+    warm-up prefill and 2 decode steps) and then its ``gen`` decode
+    steps, traced apart with ``torch.profiler`` (the device alone;
+    figures per prefill and per decode step), at the path's arch, depth,
+    dtype and seed; the weights are made for it and released after."""
+    from dataclasses import replace
 
-    model = build_model(SERVE["arch"])
-    params = model.init(SERVE["seed"], device=dev, dtype=SERVE["dtype"])
-    t, gen = SERVE["prompt_len"], SERVE["gen"]
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import Model
+
+    sv, _, layers = SERVE_PATHS[path]
+    cfg = get_arch(sv["arch"])
+    model = Model(replace(cfg, num_layers=layers or cfg.num_layers))
+    check_memory_free(torch, f"{path} profile")
+    params = model.init(sv["seed"], device=dev, dtype=sv["dtype"])
+    t, gen = sv["prompt_len"], sv["gen"]
     max_len = t + gen
     tokens = model.dummy_batch(0, 1, t, device=dev)["tokens"]
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
@@ -2256,10 +2452,13 @@ def profile_serve(torch, dev, out):
         for i in range(gen):
             logits, cache = tfm.decode_step(params, model.cfg, cache,
                                             torch.argmax(logits, -1), t + i)
-    return {"serve_prefill": _trace(torch, out, "serve_prefill", prefill, 1,
-                                    f"prefill of {t} tokens"),
-            "serve_decode": _trace(torch, out, "serve_decode", decode, gen,
-                                   "decode step")}
+    rec = {f"{path}_prefill": _trace(torch, out, f"{path}_prefill", prefill,
+                                     1, f"prefill of {t} tokens", host=False),
+           f"{path}_decode": _trace(torch, out, f"{path}_decode", decode,
+                                    gen, "decode step", host=False)}
+    del params, cache, state
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -2336,6 +2535,14 @@ def main() -> int:
           f"and two gradients of one batch on the card leaf for leaf: "
           f"{worst['fl_train']} "
           f"({phase_s['agreement_fl_train']:.1f} s)", flush=True)
+    for fam in FAMILY_TESTS:
+        t0 = time.perf_counter()
+        worst[f"family_{fam}"] = family_agreement_phase(torch, ops, dev, fam)
+        phase_s[f"agreement_{fam}"] = time.perf_counter() - t0
+        print(f"agreement card vs CPU, {fam} test configuration (fp32): "
+              f"prefill + 4 decode steps, forward_hidden, one grad_fn, MoE "
+              f"routes: {worst[f'family_{fam}']} "
+              f"({phase_s[f'agreement_{fam}']:.1f} s)", flush=True)
     counts, main = {}, {}
     for path in PATHS:
         counts[path], main[path] = main_path_phase(torch, ops, dev, path)
@@ -2368,19 +2575,27 @@ def main() -> int:
           f"median on / median off {o['ratio']:.4f}", flush=True)
     print(f"telemetry checkpoint: {tel['checkpoint']['leaves']} leaves "
           f"restored bit for bit on the card", flush=True)
-    for path, (spec, _) in SERVE_PATHS.items():
+    for path, (spec, _, _) in SERVE_PATHS.items():
         t0 = time.perf_counter()
         counts[path], main[path] = serve_path_phase(torch, ops, dev, path)
         phase_s[path] = time.perf_counter() - t0
         sv = main[path]
         print(f"main path {path}: launches {counts[path]}; {sv}", flush=True)
-        print(f"main path {path} ({spec['arch']}, {card}): {sv['n_params']} "
-              f"weights held, peak {sv['peak_gib']:.3f} GiB, prefill of "
+        print(f"main path {path} ({spec['arch']}, {sv['layers']} layers, "
+              f"{card}): {sv['n_params']} weights held, peak "
+              f"{sv['peak_gib']:.3f} GiB, prefill of "
               f"{spec['prompt_len']} tokens {sv['prefill_ms_first']:.3f} ms "
               f"first, {sv['prefill_ms_steady']:.3f} ms steady (median of "
               f"the other {spec['requests'] - 1}), decode "
               f"{sv['decode_tokens_per_s']:.3f} tokens/s at batch 1 per "
               f"slot ({phase_s[path]:.1f} s)", flush=True)
+        if path in FAMILY_SERVE:
+            t0 = time.perf_counter()
+            prof = main[path]["profile"] = profile_serve(torch, dev, None,
+                                                         path)
+            phase_s[f"{path}_profile"] = time.perf_counter() - t0
+            print(f"main path {path} profile ({card}): {prof} "
+                  f"({phase_s[f'{path}_profile']:.1f} s)", flush=True)
     t0 = time.perf_counter()
     counts["train"], main["train"] = train_path_phase(torch, ops, dev)
     phase_s["train"] = time.perf_counter() - t0

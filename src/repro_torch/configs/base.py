@@ -2,8 +2,9 @@
 of ``repro.configs.base.FLConfig`` and ``ModelConfig`` (same fields,
 same defaults, same properties), ``register_arch``/``get_arch`` and
 ``reduced``. Only the architectures the port runs are registered
-(``recurrentgemma-2b`` and the dense ``gemma2-2b``, ``granite-3-8b``,
-``h2o-danube-3-4b``, ``mistral-large-123b``); ``get_arch`` of another
+(``recurrentgemma-2b``, the dense ``gemma2-2b``, ``granite-3-8b``,
+``h2o-danube-3-4b``, ``mistral-large-123b``, the MoE ``mixtral-8x7b``,
+``llama4-maverick-400b-a17b`` and ``rwkv6-1.6b``); ``get_arch`` of another
 raises ``KeyError``."""
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Dict, Tuple
 #   "L"  local / sliding-window attention
 #   "C"  chunked attention (llama4-style iRoPE chunks)
 #   "R"  RG-LRU recurrent block (recurrentgemma)
-#   "W"  RWKV6 time-mix block (not ported yet)
+#   "W"  RWKV6 time-mix block
 ATTN_BLOCKS = ("A", "L", "C")
 
 
@@ -88,8 +89,12 @@ class ModelConfig:
         """Analytic parameter count (embedding + per-layer + head): the
         reference's formula. It gives an "R" layer's gates, conv and
         Lambda 3*rd where the layer holds w_a and w_i (2*rd^2), conv_w
-        (W*rd) and Lambda (rd), and leaves out ``final_norm``; the
-        weights held are ``models.transformer.param_count``."""
+        (W*rd) and Lambda (rd), a "W" layer's decay parameters 2*d where
+        it holds the decay LoRA (2*64*d), w0, u and the four mixes (6*d)
+        and counts its channel mix as a dense FFN (2*d*f, where it holds
+        w_k, w_v, w_r and two mixes: 2*d*f + d^2 + 2*d), and leaves out
+        ``final_norm``; the weights held are
+        ``models.transformer.param_count``."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         qkv = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
@@ -185,8 +190,9 @@ def get_arch(name: str) -> ModelConfig:
     if name not in _ARCHES:
         # import side-effect registration
         from repro_torch.configs import (  # noqa: F401
-            gemma2_2b, granite_3_8b, h2o_danube_3_4b, mistral_large_123b,
-            recurrentgemma_2b)
+            gemma2_2b, granite_3_8b, h2o_danube_3_4b,
+            llama4_maverick_400b_a17b, mistral_large_123b, mixtral_8x7b,
+            recurrentgemma_2b, rwkv6_1_6b)
     if name not in _ARCHES:
         raise KeyError(f"arch {name!r} is not ported yet; ported: "
                        f"{sorted(_ARCHES)}")

@@ -1,6 +1,6 @@
-"""The model zoo's serving path (the port's counterpart of
-``repro.models``): ``recurrentgemma-2b``'s RG-LRU and local-attention
-blocks with dense GeGLU FFNs."""
+"""The model zoo (the port's counterpart of ``repro.models``) for
+decoder-only models: attention (global, sliding-window, chunked), RG-LRU
+and RWKV6 mixers; dense, MoE and RWKV channel-mix FFNs."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

@@ -64,7 +64,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
 
 def param_count(params: Params) -> int:
     """The number of weights actually held (the config's analytic
-    ``param_count`` undercounts the RG-LRU layers and ``final_norm``)."""
+    ``param_count`` undercounts the RG-LRU and RWKV6 layers and leaves
+    out ``final_norm``)."""
     return sum(x.numel() for x in tree_leaves(params))
 
 
@@ -87,38 +88,44 @@ def logits_fn(params, cfg: ModelConfig, h: Tensor) -> Tensor:
 
 def _run_layers(params, cfg: ModelConfig, x: Tensor, *,
                 max_len: Optional[int] = None
-                ) -> Tuple[Tensor, Optional[List[Params]]]:
-    """Apply all decoder layers over positions 0..T-1; with ``max_len``
-    also each layer's decode cache. Without it and with ``cfg.remat``,
-    each layer is rematerialized in the backward (the reference's
-    ``jax.checkpoint`` per layer): only the layer boundaries are saved."""
+                ) -> Tuple[Tensor, Tensor, Optional[List[Params]]]:
+    """Apply all decoder layers over positions 0..T-1: (hidden, the sum
+    of the layers' aux losses, caches); with ``max_len`` also each
+    layer's decode cache (and the aux 0: prefill drops it). Without it
+    and with ``cfg.remat``, each layer is rematerialized in the backward
+    (the reference's ``jax.checkpoint`` per layer): only the layer
+    boundaries are saved."""
     caches = [] if max_len is not None else None
-    for lp, lt in zip(params["layers"], cfg.layer_types()):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (lp, lt) in enumerate(zip(params["layers"], cfg.layer_types())):
+        moe = cfg.is_moe_layer(i)
         if max_len is None:
-            fwd = partial(blocks.layer_forward, cfg=cfg, layer_type=lt)
-            x, _ = remat(fwd, lp, x) if cfg.remat else fwd(lp, x)
+            fwd = partial(blocks.layer_forward, cfg=cfg, layer_type=lt,
+                          is_moe=moe)
+            x, a = remat(fwd, lp, x) if cfg.remat else fwd(lp, x)
+            aux = aux + a
         else:
             x, c = blocks.layer_prefill(lp, x, cfg=cfg, layer_type=lt,
-                                        max_len=max_len)
+                                        max_len=max_len, is_moe=moe)
             caches.append(c)
-    return x, caches
+    return x, aux, caches
 
 
 def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Tensor]
                    ) -> Tuple[Tensor, Tensor, int]:
     """Embed and run the layers. Returns (hidden (B,S,D), aux_loss,
-    text_offset); aux is 0 and the offset 0 (no MoE, no modality
-    prefix)."""
+    text_offset): the MoE layers' aux losses summed (0 without MoE), the
+    offset 0 (no modality prefix)."""
     check_supported(cfg)
     x = _embed(params, cfg, batch["tokens"])
-    h, _ = _run_layers(params, cfg, x)
+    h, aux, _ = _run_layers(params, cfg, x)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device), 0
+    return h, aux, 0
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor],
             loss_chunk: int = 512) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Next-token LM loss (+ the MoE aux, 0 here). ``batch``: tokens
+    """Next-token LM loss (+ the MoE aux). ``batch``: tokens
     (B, S), optional labels and mask (default: the tokens shifted left,
     the last position masked)."""
     h, aux, off = forward_hidden(params, cfg, batch)
@@ -145,7 +152,7 @@ def prefill_hidden(params, cfg: ModelConfig, tokens: Tensor, max_len: int
     cache) with the cache as T decode steps would have left it."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
-    h, caches = _run_layers(params, cfg, x, max_len=max_len)
+    h, _, caches = _run_layers(params, cfg, x, max_len=max_len)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), {"layers": caches}
 
 
@@ -171,9 +178,10 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token: Tensor,
     are updated in place."""
     x = _embed(params, cfg, token[:, None])
     new_layers = []
-    for lp, lc, lt in zip(params["layers"], cache["layers"],
-                          cfg.layer_types()):
-        x, nc = blocks.layer_decode(lp, x, lc, index, cfg=cfg, layer_type=lt)
+    for i, (lp, lc, lt) in enumerate(zip(params["layers"], cache["layers"],
+                                         cfg.layer_types())):
+        x, nc = blocks.layer_decode(lp, x, lc, index, cfg=cfg, layer_type=lt,
+                                    is_moe=cfg.is_moe_layer(i))
         new_layers.append(nc)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = softcap(logits_fn(params, cfg, h)[:, 0], cfg.logit_softcap)

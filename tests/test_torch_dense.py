@@ -51,6 +51,10 @@ from repro.configs import reduced as jreduced
 from repro.models import transformer as jtfm
 from repro.models.model import Model as JModel
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_zoo import assert_trees as _assert_trees
+from _torch_zoo import rel as _rel
+from _torch_zoo import tree_np as _tree_np
+from _torch_zoo import weights as _weights
 from repro_torch import convert
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import transformer as tfm
@@ -81,41 +85,6 @@ def _case(name: str):
                     **over),
             replace(reduced(get_arch(name), d_model=64, layers=layers),
                     **over))
-
-
-def _rel(got, want) -> float:
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
-    return float(np.linalg.norm(got - want)
-                 / max(np.linalg.norm(want), 1e-30))
-
-
-def _tree_np(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-def _weights(cfg, seed):
-    """The port's seeded weights and a copy of them in the reference's
-    tree (the port's init spares the reference's, which runs op by op)."""
-    tp = Model(cfg).init(seed, device="cpu")
-    return tp, jax.tree.map(lambda x: jnp.asarray(np.array(x)),
-                            convert.model_params_to_numpy(tp, cfg))
-
-
-def _assert_trees(got, want, tol):
-    """Every leaf of ``got`` within ``tol`` relative of ``want``'s;
-    integer leaves (``pos``) exactly equal."""
-    want_leaves = jax.tree_util.tree_flatten_with_path(want)[0]
-    got_leaves = dict(jax.tree_util.tree_flatten_with_path(got)[0])
-    assert len(got_leaves) == len(want_leaves)
-    for path, w in want_leaves:
-        g = got_leaves[path]
-        name = jax.tree_util.keystr(path)
-        assert g.shape == w.shape, name
-        if np.issubdtype(w.dtype, np.integer):
-            assert np.array_equal(g, w), name
-        else:
-            assert _rel(g, w) <= tol, (name, _rel(g, w))
 
 
 # ---------------------------------------------------------------------------
@@ -160,9 +129,10 @@ def test_dense_weights_held_are_the_analytic_count_and_final_norm(arch):
 
 
 def test_ported_archs_resolve_and_the_others_raise():
-    for arch in DENSE + ("recurrentgemma-2b",):
+    for arch in DENSE + ("recurrentgemma-2b", "mixtral-8x7b",
+                         "llama4-maverick-400b-a17b", "rwkv6-1.6b"):
         assert get_arch(arch).name == arch
-    for arch in ("mixtral-8x7b", "rwkv6-1.6b", "whisper-small"):
+    for arch in ("whisper-small", "paligemma-3b"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_arch(arch)
 

@@ -45,7 +45,7 @@ from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.configs.base import ModelConfig, get_arch, reduced
 from repro_torch.launch import serve as serve_mod
-from repro_torch.models import attention, common, mlp, rglru
+from repro_torch.models import attention, blocks, common, mlp, rglru
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model, build_model
 from repro_torch.serve.decode import (greedy_generate, make_prefill_step,
@@ -168,16 +168,17 @@ def test_full_width_layout_and_true_parameter_count():
 
 
 def test_unported_arch_and_layers_raise():
-    with pytest.raises(KeyError, match="'rwkv6-1.6b' is not ported yet"):
-        get_arch("rwkv6-1.6b")
+    with pytest.raises(KeyError, match="'whisper-small' is not ported yet"):
+        get_arch("whisper-small")
     base = CFG
-    for override, words in ((dict(block_pattern=("W",)), "RWKV6"),
-                            (dict(n_experts=4), "MoE FFN layers"),
-                            (dict(enc_layers=2), "encoder-decoder"),
+    for override, words in ((dict(enc_layers=2), "encoder-decoder"),
                             (dict(vis_tokens=8), "VLM image prefix")):
         with pytest.raises(NotImplementedError,
                            match=f"{words}.* not ported yet"):
             Model(replace(base, **override)).init(0, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="cross-attention layers.* not ported yet"):
+        blocks.check_layer("A", cross=True)
 
 
 def test_init_on_cuda_without_gpu_raises(monkeypatch):
