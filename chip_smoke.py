@@ -73,7 +73,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    greedy decode steps, ``forward_hidden`` with its aux loss and one
    ``Model.grad_fn`` (loss and every gradient leaf) within 1e-4, the MoE
    routes (the kept (expert, token) pairs of every capacity selection)
-   exactly equal, no kernel launched;
+   exactly equal, no kernel launched; then the encoder-decoder and VLM
+   families at the CPU tests' configurations (whisper-small's layout with
+   2 encoder and 2 decoder layers, 16 frames and ``rope_theta`` 0, so
+   the sinusoidal positions run; paligemma-3b's with 2 layers and 8
+   patches; d_model 64, fp32), the card against the CPU: the same
+   checks, the encoder's output (whisper) and ``make_prefill_step`` with
+   patches (paligemma) besides, the cache's cross-attention keys and
+   values included, no kernel launched;
 5. main paths, with every launch counter reset just before the path and
    read just after it:
    * HEADLINE and DEFENSE, each five rounds of ``FLServer.run_round``
@@ -142,6 +149,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one steady prefill and the 16 decode steps after it of each traced
      with ``torch.profiler`` (device events, busy ms by kernel group,
      idle share);
+   * SERVE_WHISPER, SERVE_PALIGEMMA: the same launcher, bf16, at the
+     full published widths and depths of whisper-small (12 encoder and
+     12 decoder layers, d_model 768; 4 slots, 8 requests of 432 + 16
+     tokens, the decoder's 448 positions, each request's 1500 frames
+     from ``dummy_batch`` encoded first) and paligemma-3b (18 layers; 2
+     slots, 4 requests of ``prompt_len`` 1280: 1024 text tokens, the
+     launcher's prefill ignoring the 256 patches as the reference's does,
+     then decoding from index 1280); every kernel never; the weights
+     held exactly (238,060,800 / 2,508,662,784); each profiled as the
+     MoE and RWKV6 paths are;
+   * PREFIX_PREFILL_PALIGEMMA: ``serve.decode.make_prefill_step`` at
+     paligemma-3b's full widths and depth in bf16 on 2 rows of 256
+     patches (the bidirectional prefix) and 1024 text tokens; one
+     warm-up call and 3 timed ones (first and steady ms), every kernel
+     never, the logits finite;
    * TRAIN: recurrentgemma-2b at full width (26 layers, fp32 weights,
      every layer rematerialized) through ``train.make_plain_step``,
      AdamW on a cosine schedule after ``clip_by_global_norm(1.0)``,
@@ -347,12 +369,24 @@ SERVE_PATHS = {
                      33_751_413_760, 4),
     "serve_rwkv6": (dict(DENSE_SERVE, arch="rwkv6-1.6b"), 1_483_180_032,
                     None),
+    # 432 + 16: the decoder's 448 positions; 1500 frames a request
+    "serve_whisper": (dict(SERVE, arch="whisper-small", prompt_len=432),
+                      238_060_800, None),
+    # 256 patches + 1024 text tokens; decoding starts at index 1280
+    "serve_paligemma": (dict(DENSE_SERVE, arch="paligemma-3b",
+                             prompt_len=1280), 2_508_662_784, None),
 }
-# the serve paths of the MoE and RWKV6 families: each is also profiled,
-# one steady prefill and its decode steps (``profile_serve``)
-FAMILY_SERVE = ("serve_mixtral", "serve_llama4", "serve_rwkv6")
+# the serve paths of the MoE, RWKV6, encoder-decoder and VLM families:
+# each is also profiled, one steady prefill and its decode steps
+# (``profile_serve``)
+FAMILY_SERVE = ("serve_mixtral", "serve_llama4", "serve_rwkv6",
+                "serve_whisper", "serve_paligemma")
 # phase 4's test configurations of those families (``_family_test_model``)
-FAMILY_TESTS = ("mixtral", "llama4", "rwkv6")
+FAMILY_TESTS = ("mixtral", "llama4", "rwkv6", "whisper", "paligemma")
+# the VLM's prefill with its image prefix, ``serve.decode.make_prefill_step``
+# at paligemma-3b's full widths and depth: one warm-up call, then CALLS
+PREFIX_PREFILL = dict(arch="paligemma-3b", batch=2, seq=256 + 1024, calls=3,
+                      dtype="bfloat16", seed=0, held=2_508_662_784)
 # the train path: recurrentgemma-2b at full width in fp32, every layer
 # rematerialized, AdamW on a cosine schedule after global-norm clipping,
 # batches of 2 x 2048 tokens from the token stream; one warm-up step,
@@ -1219,8 +1253,10 @@ def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
     """The fp32 prefill of two ``t``-token prompts (t > the window, so the
     ring wraps) and ``steps`` greedy decode steps on the card (the
     linear_scan kernel, once per "R" layer) against the CPU (its plain
-    version), from the same weights and prompts; ``model`` defaults to
-    recurrentgemma-2b's test configuration."""
+    version), from the same weights and prompts (an encoder-decoder's
+    frames too; a VLM's ``t`` counts its patches, which the prefill
+    ignores, and decoding starts at ``t`` as in the launcher); ``model``
+    defaults to recurrentgemma-2b's test configuration."""
     import numpy as np
     from repro_torch.models import transformer as tfm
     from repro_torch.tree import tree_leaves, tree_map
@@ -1229,12 +1265,12 @@ def serve_agreement_phase(torch, ops, dev, t: int = 96, max_len: int = 104,
     cfg = model.cfg
     cpu = torch.device("cpu")
     p_cpu = model.init(0, device=cpu)
-    tokens = model.dummy_batch(0, 2, t)["tokens"]
+    batch = model.dummy_batch(0, 2, t)
 
     def run(d, params):
         before = ops.linear_scan.launches
-        logits, cache = model.prefill(params, {"tokens": tokens.to(d)},
-                                      max_len)
+        logits, cache = model.prefill(
+            params, {k: v.to(d) for k, v in batch.items()}, max_len)
         scans = ops.linear_scan.launches - before
         # copies: decode updates attention caches in place
         out = dict(prefill=logits.cpu(),
@@ -1343,11 +1379,20 @@ def _family_test_model(family: str):
     forward drops tokens; llama4's one period (C, C, C, A; MoE on 1 and
     3; 4 experts, top-1, chunk 64) with a prompt past the chunk; rwkv6's
     3 "W" layers with a 150-token prompt (two 64-token chunks and a
-    ragged one). d_model 128, fp32."""
+    ragged one). d_model 128, fp32. whisper-small's and paligemma-3b's
+    are the CPU tests' (d_model 64): 2 encoder and 2 decoder layers, 16
+    frames, ``rope_theta`` 0 so the sinusoids run, and a 24-token
+    prompt; 2 layers and 8 patches before a 24-token text."""
     from dataclasses import replace
 
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.models.model import Model
+
+    if family == "whisper":
+        return Model(replace(reduced(get_arch("whisper-small"), d_model=64),
+                             rope_theta=0.0)), 24
+    if family == "paligemma":
+        return Model(reduced(get_arch("paligemma-3b"), d_model=64)), 32
 
     if family == "mixtral":
         cfg = replace(reduced(get_arch("mixtral-8x7b"), d_model=128,
@@ -1397,10 +1442,13 @@ def family_agreement_phase(torch, ops, dev, family: str, chunk: int = 40):
     from the same weights: the prefill of two prompts with its cache and
     4 greedy decode steps (``serve_agreement_phase``), ``forward_hidden``
     with its aux loss, and one ``Model.grad_fn`` (loss, aux metric and
-    every gradient leaf), all within 1e-4 relative; the MoE routes (the
-    kept (expert, token) pairs of every ``moe.route``) exactly equal; no
-    kernel launched."""
+    every gradient leaf), all within 1e-4 relative, with an
+    encoder-decoder's frames and ``Model.encode``, and a VLM's patches
+    and ``serve.make_prefill_step``; the MoE routes (the kept (expert,
+    token) pairs of every ``moe.route``) exactly equal; no kernel
+    launched."""
     from repro_torch.models import transformer as tfm
+    from repro_torch.serve.decode import make_prefill_step
     from repro_torch.tree import tree_leaves, tree_map
 
     model, t = _family_test_model(family)
@@ -1417,19 +1465,28 @@ def family_agreement_phase(torch, ops, dev, family: str, chunk: int = 40):
 
         def run(d, params):
             b = {k: v.to(d) for k, v in batch.items()}
-            h, aux, _ = tfm.forward_hidden(params, cfg, b)
+            h, aux, off = tfm.forward_hidden(params, cfg, b)
             (loss, met), grads = model.grad_fn(chunk)(params, b)
-            return dict(h=h.cpu(), aux=aux.cpu(), loss=loss.cpu(),
-                        aux_metric=met["aux_loss"].cpu(),
-                        grads=[g.cpu() for g in tree_leaves(grads)])
+            out = dict(h=h.cpu(), aux=aux.cpu(), loss=loss.cpu(),
+                       aux_metric=met["aux_loss"].cpu(),
+                       grads=[g.cpu() for g in tree_leaves(grads)])
+            check(off == cfg.vis_tokens, f"{family}: offset {off}")
+            if cfg.is_encdec:
+                out["encode"] = model.encode(params, b["frames"]).cpu()
+            if cfg.vis_tokens:
+                out["prefill_step"] = make_prefill_step(model)(params,
+                                                               b).cpu()
+            return out
 
         host = run(cpu, p_cpu)
         card = run(dev, tree_map(lambda x: x.to(dev, copy=True), p_cpu))
         forward_drops = _same_routes(seen, dev, f"{family} forward")
     check(ops.launch_counts() == before,
           f"{family} agreement: a kernel was launched")
-    for key in ("h", "aux", "loss", "aux_metric"):
-        worst[key] = rel_err(torch, card[key], host[key])
+    for key in ("h", "aux", "loss", "aux_metric", "encode",
+                "prefill_step"):
+        if key in host:
+            worst[key] = rel_err(torch, card[key], host[key])
     worst["grads"] = max(rel_err(torch, a, b)
                          for a, b in zip(card["grads"], host["grads"]))
     check(max(v for v in worst.values() if isinstance(v, float)) <= 1e-4,
@@ -1523,6 +1580,61 @@ def serve_path_phase(torch, ops, dev, path: str = "serve"):
         decode_steps=res.decode_steps, decode_s=res.decode_s,
         decode_tokens_per_s=res.decode_tokens_per_s,
         tokens={r.rid: r.generated for r in res.requests})
+
+
+def prefix_prefill_phase(torch, ops, dev):
+    """``PREFIX_PREFILL``: ``serve.decode.make_prefill_step`` (the full
+    forward through ``forward_hidden``, the patches a bidirectional
+    prefix) at paligemma-3b's full published widths and depth in bf16 on
+    ``batch`` rows of 256 patches and ``seq`` - 256 text tokens from
+    ``dummy_batch``; one warm-up call, then ``calls`` timed ones (host
+    clock to ``synchronize``), the launch counters reset just before and
+    read just after: every kernel never. The logits (batch, vocab)
+    finite, the weights held as stated, peak memory; the weights are
+    released after."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import make_prefill_step
+
+    pp = PREFIX_PREFILL
+    model = Model(get_arch(pp["arch"]))
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    before_gib = check_memory_free(torch, "prefix_prefill")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params = model.init(pp["seed"], device=dev, dtype=pp["dtype"])
+    batch = model.dummy_batch(0, pp["batch"], pp["seq"], device=dev)
+    step = make_prefill_step(model)
+    ms, finite = [], True
+    for _ in range(1 + pp["calls"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(torch.isfinite(logits).all())
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = tfm.param_count(params)
+    shape = tuple(logits.shape)
+    del params, batch, logits
+    torch.cuda.empty_cache()
+    check(all(c == 0 for c in counts.values()),
+          f"prefix_prefill: launches {counts}, expected none")
+    check(n_params == pp["held"],
+          f"prefix_prefill: {n_params} weights, expected {pp['held']}")
+    check(shape == (pp["batch"], cfg.vocab_size),
+          f"prefix_prefill: logits of shape {shape}")
+    check(finite, "prefix_prefill: a logit is not finite")
+    steady = statistics.median(ms[1:])
+    return counts, dict(
+        arch=pp["arch"], rows=pp["batch"], patches=cfg.vis_tokens,
+        text_tokens=pp["seq"] - cfg.vis_tokens, n_params=n_params,
+        allocated_before_gib=before_gib, peak_gib=peak_gib, ms=ms,
+        first_ms=ms[0], steady_ms=steady,
+        tokens_per_s=pp["batch"] * pp["seq"] / steady * 1e3)
 
 
 def train_path_phase(torch, ops, dev):
@@ -2422,7 +2534,10 @@ def profile_serve(torch, dev, out, path: str = "serve"):
     warm-up prefill and 2 decode steps) and then its ``gen`` decode
     steps, traced apart with ``torch.profiler`` (the device alone;
     figures per prefill and per decode step), at the path's arch, depth,
-    dtype and seed; the weights are made for it and released after."""
+    dtype and seed; the weights are made for it and released after. A
+    request's batch is ``dummy_batch`` (an encoder-decoder's frames
+    encoded in the prefill) and decoding starts at ``prompt_len``, as in
+    the launcher."""
     from dataclasses import replace
 
     from repro_torch.configs.base import get_arch
@@ -2436,16 +2551,16 @@ def profile_serve(torch, dev, out, path: str = "serve"):
     params = model.init(sv["seed"], device=dev, dtype=sv["dtype"])
     t, gen = sv["prompt_len"], sv["gen"]
     max_len = t + gen
-    tokens = model.dummy_batch(0, 1, t, device=dev)["tokens"]
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    batch = model.dummy_batch(0, 1, t, device=dev)
+    logits, cache = model.prefill(params, batch, max_len)
     for i in range(2):
         logits, cache = tfm.decode_step(params, model.cfg, cache,
                                         torch.argmax(logits, -1), t + i)
     state = {}
 
     def prefill():
-        state["logits"], state["cache"] = model.prefill(
-            params, {"tokens": tokens}, max_len)
+        state["logits"], state["cache"] = model.prefill(params, batch,
+                                                        max_len)
 
     def decode():
         logits, cache = state["logits"], state["cache"]
@@ -2541,7 +2656,8 @@ def main() -> int:
         phase_s[f"agreement_{fam}"] = time.perf_counter() - t0
         print(f"agreement card vs CPU, {fam} test configuration (fp32): "
               f"prefill + 4 decode steps, forward_hidden, one grad_fn, MoE "
-              f"routes: {worst[f'family_{fam}']} "
+              f"routes, encode / make_prefill_step: "
+              f"{worst[f'family_{fam}']} "
               f"({phase_s[f'agreement_{fam}']:.1f} s)", flush=True)
     counts, main = {}, {}
     for path in PATHS:
@@ -2596,6 +2712,18 @@ def main() -> int:
             phase_s[f"{path}_profile"] = time.perf_counter() - t0
             print(f"main path {path} profile ({card}): {prof} "
                   f"({phase_s[f'{path}_profile']:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    path = "prefix_prefill_paligemma"
+    counts[path], main[path] = prefix_prefill_phase(torch, ops, dev)
+    phase_s[path] = time.perf_counter() - t0
+    pf = main[path]
+    print(f"main path {path}: launches {counts[path]}; {pf}", flush=True)
+    print(f"main path {path} ({pf['arch']}, bf16, {card}): "
+          f"make_prefill_step on {pf['rows']} x ({pf['patches']} patches + "
+          f"{pf['text_tokens']} text tokens) {pf['first_ms']:.3f} ms first, "
+          f"{pf['steady_ms']:.3f} ms steady (median of "
+          f"{PREFIX_PREFILL['calls']}), peak {pf['peak_gib']:.3f} GiB "
+          f"({phase_s[path]:.1f} s)", flush=True)
     t0 = time.perf_counter()
     counts["train"], main["train"] = train_path_phase(torch, ops, dev)
     phase_s["train"] = time.perf_counter() - t0

@@ -1,11 +1,12 @@
 """Config dataclasses and the architecture registry: the port's copies
 of ``repro.configs.base.FLConfig`` and ``ModelConfig`` (same fields,
 same defaults, same properties), ``register_arch``/``get_arch`` and
-``reduced``. Only the architectures the port runs are registered
-(``recurrentgemma-2b``, the dense ``gemma2-2b``, ``granite-3-8b``,
-``h2o-danube-3-4b``, ``mistral-large-123b``, the MoE ``mixtral-8x7b``,
-``llama4-maverick-400b-a17b`` and ``rwkv6-1.6b``); ``get_arch`` of another
-raises ``KeyError``."""
+``reduced``, and ``ShapeConfig``/``SHAPES``. Every architecture the
+reference registers is registered: ``recurrentgemma-2b``, the dense
+``gemma2-2b``, ``granite-3-8b``, ``h2o-danube-3-4b``,
+``mistral-large-123b``, the MoE ``mixtral-8x7b`` and
+``llama4-maverick-400b-a17b``, ``rwkv6-1.6b``, the encoder-decoder
+``whisper-small`` and the VLM ``paligemma-3b``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -143,6 +144,22 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class FLConfig:
     """Cost-TrustFL hyper-parameters (paper §IV / §V-A)."""
     n_clouds: int = 3
@@ -185,17 +202,15 @@ def register_arch(cfg: ModelConfig) -> ModelConfig:
 
 
 def get_arch(name: str) -> ModelConfig:
-    """The registered config ``name``; ``KeyError`` for an architecture
-    the port does not run yet."""
+    """The registered config ``name``; ``KeyError`` for an unknown one."""
     if name not in _ARCHES:
         # import side-effect registration
         from repro_torch.configs import (  # noqa: F401
             gemma2_2b, granite_3_8b, h2o_danube_3_4b,
             llama4_maverick_400b_a17b, mistral_large_123b, mixtral_8x7b,
-            recurrentgemma_2b, rwkv6_1_6b)
+            paligemma_3b, recurrentgemma_2b, rwkv6_1_6b, whisper_small)
     if name not in _ARCHES:
-        raise KeyError(f"arch {name!r} is not ported yet; ported: "
-                       f"{sorted(_ARCHES)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHES)}")
     return _ARCHES[name]
 
 

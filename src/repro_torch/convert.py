@@ -2,8 +2,9 @@
 port as numpy arrays. The port keeps the reference's parameter layout
 (conv HWIO, dense (in, out), sorted keys), so conversion is a copy; for
 the model zoo it also unstacks the reference's ``scanned``/``tail``
-layer groups into the port's per-layer list, and stacks them back, and
-carries an optimizer state (``OptState``) across the same way."""
+layer groups (and an encoder's stacked ``encoder.layers``) into the
+port's per-layer lists, and stacks them back, and carries an optimizer
+state (``OptState``) across the same way."""
 from __future__ import annotations
 
 import math
@@ -81,16 +82,19 @@ def _unstack(tree: Mapping[str, Any], cfg: ModelConfig) -> List[Any]:
             for i in range(cfg.num_layers)]
 
 
+def _stack_group(group: List[Any]) -> Any:
+    """Trees of one structure stacked leaf by leaf on a new leading
+    axis."""
+    first = group[0]
+    if isinstance(first, Mapping):
+        return {k: _stack_group([g[k] for g in group]) for k in first}
+    return np.stack(group)
+
+
 def _stack(layers: List[Any], cfg: ModelConfig) -> Dict[str, List[Any]]:
     p = _p_eff(cfg)
     r = cfg.num_layers // p
-
-    def stack(group):
-        first = group[0]
-        if isinstance(first, Mapping):
-            return {k: stack([g[k] for g in group]) for k in first}
-        return np.stack(group)
-    return {"scanned": [stack([layers[i * p + j] for i in range(r)])
+    return {"scanned": [_stack_group([layers[i * p + j] for i in range(r)])
                         for j in range(p)] if r > 0 else [],
             "tail": layers[r * p:]}
 
@@ -114,11 +118,19 @@ def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, *,
                             device, dtype=torch.float32) -> Dict[str, Any]:
     """Reference model params (numpy leaves, e.g. ``jax.tree.map(
     np.asarray, params)``) -> the port's {"embed", "layers": [...],
-    "final_norm"[, "lm_head"]} in ``dtype`` on ``device``."""
+    "final_norm"[, "lm_head"][, "encoder": {"layers": [...],
+    "final_norm"}]} in ``dtype`` on ``device``."""
     conv = _from_np(device, dtype)
     out = {k: conv(v) for k, v in tree.items()
-           if k not in ("scanned", "tail")}
+           if k not in ("scanned", "tail", "encoder")}
     out["layers"] = [tree_map(conv, lp) for lp in _unstack(tree, cfg)]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [tree_map(lambda a, i=i: conv(np.asarray(a)[i]),
+                                enc["layers"])
+                       for i in range(cfg.enc_layers)],
+            "final_norm": conv(enc["final_norm"])}
     return out
 
 
@@ -126,15 +138,23 @@ def model_params_to_numpy(params: Mapping[str, Any], cfg: ModelConfig
                           ) -> Dict[str, Any]:
     """The port's model params -> the reference's stacked tree (numpy
     leaves, float32 for floating tensors)."""
-    out = {k: _to_np(v) for k, v in params.items() if k != "layers"}
+    out = {k: _to_np(v) for k, v in params.items()
+           if k not in ("layers", "encoder")}
     out.update(_stack([tree_map(_to_np, lp) for lp in params["layers"]], cfg))
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": _stack_group([tree_map(_to_np, lp)
+                                    for lp in enc["layers"]]),
+            "final_norm": _to_np(enc["final_norm"])}
     return out
 
 
 def model_cache_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, *,
                            device, dtype=torch.float32) -> Dict[str, Any]:
     """A reference decode cache {"scanned", "tail"} (numpy leaves) -> the
-    port's {"layers": [...]} (``pos`` stays int32)."""
+    port's {"layers": [...]} (``pos`` stays int32; an encoder-decoder's
+    ``cross`` keys and values come along as any other leaf)."""
     conv = _from_np(device, dtype)
     return {"layers": [tree_map(conv, lc) for lc in _unstack(tree, cfg)]}
 

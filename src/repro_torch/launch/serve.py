@@ -2,8 +2,12 @@
 (the port's copy of ``repro/launch/serve.py`` on one device). Each slot
 takes a request, prefills its prompt through one full-sequence forward
 (every "R" layer's recurrence through the ``linear_scan`` kernel on the
-card) and decodes it one token a step until it is done; freed slots are
-refilled from the queue.
+card; an encoder-decoder's frames through its encoder first) and decodes
+it one token a step until it is done; freed slots are refilled from the
+queue. A request's batch is ``dummy_batch`` of ``prompt_len``: for a
+VLM that is ``prompt_len - vis_tokens`` text tokens (the prefill, as the
+reference's, ignores the patches) and decoding starts at index
+``prompt_len``, as in the reference's launcher.
 
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke \\
       --device cpu --requests 8 --gen 16
@@ -57,9 +61,12 @@ def serve(arch: str = "recurrentgemma-2b", *, smoke: bool = False,
           dtype="float32", seed: int = 0,
           prompts: Optional[Sequence[torch.Tensor]] = None) -> ServeResult:
     """Serve ``requests`` requests of ``prompt_len`` + ``gen`` tokens over
-    ``batch`` slots with weights from ``seed``. Request ``i``'s prompt is
-    ``prompts[i]`` (1-D token ids) or drawn from a CPU ``torch.Generator``
-    seeded with ``i``. Raises on ``device="cuda"`` without a GPU."""
+    ``batch`` slots with weights from ``seed``. Request ``i``'s batch is
+    ``model.dummy_batch(i, 1, prompt_len)`` (drawn from a CPU
+    ``torch.Generator`` seeded with ``i``), its tokens replaced by
+    ``prompts[i]`` (1-D token ids, ``prompt_len - vis_tokens`` of them)
+    when given; its first decode step is at index ``prompt_len``. Raises
+    on ``device="cuda"`` without a GPU, and on prompts of another length."""
     dev = resolve_device(device)
     model: Model = build_model(arch, smoke=smoke)
     cfg = model.cfg
@@ -69,12 +76,18 @@ def serve(arch: str = "recurrentgemma-2b", *, smoke: bool = False,
     init_s = time.perf_counter() - t0
     if prompts is not None and len(prompts) < requests:
         raise ValueError(f"{len(prompts)} prompts for {requests} requests")
+    text_len = prompt_len - cfg.vis_tokens
+    if prompts is not None and any(p.numel() != text_len
+                                   for p in prompts[:requests]):
+        raise ValueError(f"every prompt must hold {text_len} tokens "
+                         f"(prompt_len - vis_tokens)")
     max_len = prompt_len + gen
 
-    def prompt_of(rid: int) -> torch.Tensor:
+    def batch_of(rid: int) -> dict:
+        b = model.dummy_batch(rid, 1, prompt_len, device=dev)
         if prompts is not None:
-            return prompts[rid].reshape(1, -1).to(dev)
-        return model.dummy_batch(rid, 1, prompt_len, device=dev)["tokens"]
+            b["tokens"] = prompts[rid].reshape(1, -1).to(dev)
+        return b
 
     queue = [Request(i, prompt_len, gen) for i in range(requests)]
     slots: List[Optional[Request]] = [None] * batch
@@ -89,13 +102,12 @@ def serve(arch: str = "recurrentgemma-2b", *, smoke: bool = False,
             if slots[j] is None and queue:
                 r = slots[j] = queue.pop(0)
                 t1 = time.perf_counter()
-                tokens = prompt_of(r.rid)
-                logits, caches[j] = model.prefill(params, {"tokens": tokens},
+                logits, caches[j] = model.prefill(params, batch_of(r.rid),
                                                   max_len)
                 finite &= torch.isfinite(logits).all()
                 toks[j] = int(torch.argmax(logits, dim=-1)[0])
                 r.prefill_s = time.perf_counter() - t1
-                pos[j] = tokens.shape[1]
+                pos[j] = prompt_len
         t1 = time.perf_counter()
         for j in range(batch):
             r = slots[j]

@@ -1,13 +1,13 @@
 """GQA attention: full / sliding-window / chunked, softcap, RoPE, a
-q-chunked full-sequence path and a position-tagged KV-cache decode path
-(the port's copy of ``repro/models/attention.py``; cross-attention comes
-with Whisper). Plain tensor ops (``einsum``, ``softmax``): the reference
-has no attention kernel.
+bidirectional prefix (the VLM's image), a q-chunked full-sequence path, a
+position-tagged KV-cache decode path and encoder-decoder cross-attention
+(the port's copy of ``repro/models/attention.py``). Plain tensor ops
+(``einsum``, ``softmax``): the reference has no attention kernel.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,22 +41,24 @@ def _qkv(params, xq: Tensor, xkv: Tensor, cfg: ModelConfig):
     return q, k, v
 
 
-def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
           attn_cap: float) -> Tensor:
-    """q: (B,T,KV,G,hd) k/v: (B,S,KV,hd) mask: broadcastable (B,1,1,T,S).
-    Returns (B,T,KV,G,hd)."""
+    """q: (B,T,KV,G,hd) k/v: (B,S,KV,hd) mask: broadcastable (B,1,1,T,S),
+    or None for no mask (cross-attention). Returns (B,T,KV,G,hd)."""
     hd = q.shape[-1]
     scores = torch.einsum("btkgh,bskh->bkgts", q, k) / math.sqrt(hd)
     scores = softcap(scores.to(torch.float32), attn_cap)
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgts,bskh->btkgh", p, v)
 
 
 def _band_mask(qpos: Tensor, kpos: Tensor, layer_type: str,
-               cfg: ModelConfig) -> Tensor:
-    """(T, S) boolean mask for self-attention given absolute positions
-    (the VLM prefix's bidirectional block comes with PaliGemma)."""
+               cfg: ModelConfig, prefix_len: int = 0) -> Tensor:
+    """(T, S) boolean mask for self-attention given absolute positions;
+    with ``prefix_len`` P the first P positions also see each other both
+    ways (the VLM's image prefix, the encoder's whole input)."""
     qp, kp = qpos[:, None], kpos[None, :]
     causal = kp <= qp
     if layer_type == "L":
@@ -65,17 +67,23 @@ def _band_mask(qpos: Tensor, kpos: Tensor, layer_type: str,
         m = causal & (kp // cfg.chunk == qp // cfg.chunk)
     else:
         m = causal
+    if prefix_len > 0:
+        m = m | ((kp < prefix_len) & (qp < prefix_len))
     return m
 
 
 def _attn_seq(params, x: Tensor, cfg: ModelConfig, layer_type: str,
-              q_chunk: int) -> Tuple[Tensor, Tensor, Tensor]:
-    """Full-sequence self-attention over positions 0..T-1; returns
-    (y, k, v) with k after RoPE.
+              q_chunk: int, prefix_len: int = 0
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Full-sequence self-attention over positions 0..T-1 (the only
+    positions the reference's ``forward_hidden`` passes), the first
+    ``prefix_len`` bidirectional; returns (y, k, v) with k after RoPE.
 
     Loops over query chunks so the score block held live is
     (B, H, q_chunk, S); for "L"/"C" layers keys are sliced to the
-    reachable band, so compute is O(T·window) rather than O(T²)."""
+    reachable band, so compute is O(T·window) rather than O(T²). The
+    padded queries of a ragged last chunk carry position -1, which the
+    prefix term lets through, so the mask drops them after it."""
     b, t, _ = x.shape
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     positions = torch.arange(t, device=x.device)
@@ -112,7 +120,7 @@ def _attn_seq(params, x: Tensor, cfg: ModelConfig, layer_type: str,
             kp = start + torch.arange(band, device=x.device)
         else:
             ki, vi, kp = k, v, positions
-        m = _band_mask(qp, kp, layer_type, cfg)
+        m = _band_mask(qp, kp, layer_type, cfg, prefix_len)
         m = m & (qp[:, None] >= 0)
         outs.append(_sdpa(qi, ki, vi, m[None, None, None], cfg.attn_softcap))
     out = torch.cat(outs, dim=1).reshape(b, n_blocks * q_chunk,
@@ -121,11 +129,25 @@ def _attn_seq(params, x: Tensor, cfg: ModelConfig, layer_type: str,
 
 
 def attn_forward(params, x: Tensor, *, cfg: ModelConfig, layer_type: str,
-                 q_chunk: int = 1024) -> Tensor:
+                 prefix_len: int = 0, q_chunk: int = 1024) -> Tensor:
     """Full-sequence self-attention (train / prefill) over positions
-    0..T-1 (the reference's ``positions`` and ``prefix_len`` come with
-    the VLM prefix). x: (B, T, D)."""
-    return _attn_seq(params, x, cfg, layer_type, q_chunk)[0]
+    0..T-1, the first ``prefix_len`` bidirectional. x: (B, T, D). The
+    reference's ``positions`` argument is always arange(T) on its paths,
+    so the port has none."""
+    return _attn_seq(params, x, cfg, layer_type, q_chunk, prefix_len)[0]
+
+
+def cross_attn_forward(params, x: Tensor, memory: Tensor, *,
+                       cfg: ModelConfig) -> Tensor:
+    """Encoder-decoder cross-attention: the queries of x (B, T, D) over
+    the keys and values of ``memory`` (B, F, D); no mask, no RoPE, no
+    softcap (the reference passes 0.0, not ``cfg.attn_softcap``)."""
+    b, t, _ = x.shape
+    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _qkv(params, x, memory, cfg)
+    q = q.reshape(b, t, kvh, g, -1)
+    out = _sdpa(q, k, v, None, 0.0).reshape(b, t, cfg.n_heads, -1)
+    return torch.einsum("bthk,hkd->btd", out, params["wo"])
 
 
 def attn_prefill(params, x: Tensor, *, cfg: ModelConfig, layer_type: str,
@@ -213,3 +235,24 @@ def _decode_attn(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
             f"decode over a cache of {k.shape[1]} > 2^20 slots takes the "
             "reference's chunked branch, which is not ported yet")
     return _sdpa(q, k, v, valid[None, None, None, None, :], attn_cap)
+
+
+def init_cross_cache(params, memory: Tensor, cfg: ModelConfig
+                     ) -> Dict[str, Tensor]:
+    """Cross-attention keys and values of the encoder's output ``memory``
+    (B, F, D), computed once: {"k", "v"} of (B, F, KV, hd)."""
+    return {"k": torch.einsum("bsd,dhk->bshk", memory, params["wk"]),
+            "v": torch.einsum("bsd,dhk->bshk", memory, params["wv"])}
+
+
+def cross_attn_decode(params, x: Tensor, cache: Dict[str, Tensor], *,
+                      cfg: ModelConfig) -> Tensor:
+    """One-token cross-attention of x (B, 1, D) over the cached encoder
+    keys and values (:func:`init_cross_cache`); no mask, no softcap."""
+    b = x.shape[0]
+    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"]).reshape(
+        b, 1, kvh, g, -1)
+    out = _sdpa(q, cache["k"], cache["v"], None, 0.0).reshape(
+        b, 1, cfg.n_heads, -1)
+    return torch.einsum("bthk,hkd->btd", out, params["wo"])

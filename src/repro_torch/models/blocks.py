@@ -1,8 +1,7 @@
-"""Per-layer block: pre-norm mixer (attention / RG-LRU / RWKV6) +
-pre-norm FFN (dense / MoE / RWKV channel mix), with the reference's
-cache protocol for decode (the port's copy of ``repro/models/blocks.py``).
-Cross-attention layers raise ``NotImplementedError`` naming the missing
-feature."""
+"""Per-layer block: pre-norm mixer (attention / RG-LRU / RWKV6), an
+encoder-decoder layer's pre-norm cross-attention, then the pre-norm FFN
+(dense / MoE / RWKV channel mix), with the reference's cache protocol for
+decode (the port's copy of ``repro/models/blocks.py``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -21,12 +20,8 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
-def check_layer(layer_type: str, is_moe: bool = False,
-                cross: bool = False) -> None:
-    """Raise for a layer kind the port does not run yet."""
-    if cross:
-        raise NotImplementedError("cross-attention layers (Whisper's "
-                                  "decoder) are not ported yet")
+def check_layer(layer_type: str) -> None:
+    """Raise for an unknown layer type."""
     if layer_type not in ATTN_BLOCKS + ("R", "W"):
         raise ValueError(layer_type)
 
@@ -34,7 +29,9 @@ def check_layer(layer_type: str, is_moe: bool = False,
 def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_type: str,
                is_moe: bool = False, dtype=torch.float32,
                cross: bool = False) -> Params:
-    check_layer(layer_type, is_moe, cross)
+    """One layer's weights drawn from ``gen``: the norms, the mixer, the
+    FFN and, with ``cross``, ``norm_x`` and the cross-attention."""
+    check_layer(layer_type)
     d = cfg.d_model
     p: Params = {"norm1": torch.zeros(d, dtype=dtype, device=gen.device),
                  "norm2": torch.zeros(d, dtype=dtype, device=gen.device)}
@@ -50,6 +47,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_type: str,
         p["ffn"] = moe_mod.init_moe(gen, cfg, dtype)
     else:
         p["ffn"] = mlp_mod.init_mlp(gen, cfg, dtype)
+    if cross:
+        p["norm_x"] = torch.zeros(d, dtype=dtype, device=gen.device)
+        p["cross"] = attn.init_attn(gen, cfg, dtype)
     return p
 
 
@@ -58,20 +58,26 @@ def _norm(x: Tensor, scale: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
-               is_moe: bool, max_len: Optional[int]
+               is_moe: bool, max_len: Optional[int], prefix_len: int = 0,
+               memory: Optional[Tensor] = None
                ) -> Tuple[Tensor, Tensor, Optional[Params]]:
-    """Full-sequence layer over positions 0..T-1: (x, aux_loss, cache);
-    with ``max_len`` the layer's cache (in the activations' dtype) and an
-    MoE FFN routing each position's B tokens as a group (the reference's
+    """Full-sequence layer over positions 0..T-1, the first
+    ``prefix_len`` attending both ways: (x, aux_loss, cache); with
+    ``max_len`` the layer's cache (in the activations' dtype) and an MoE
+    FFN routing each position's B tokens as a group (the reference's
     decode-step prefill), without it the cache None and all B·T tokens
-    one group (the reference's forward)."""
+    one group (the reference's forward). A layer with ``cross`` attends
+    to ``memory`` after its mixer when memory is given (the reference's
+    forward skips it otherwise), and its cache's ``cross`` holds
+    memory's keys and values."""
     cache: Optional[Params] = None if max_len is None else {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm(x, p["norm1"], cfg)
     if layer_type in ATTN_BLOCKS:
         if max_len is None:
             m = attn.attn_forward(p["mixer"], h, cfg=cfg,
-                                  layer_type=layer_type)
+                                  layer_type=layer_type,
+                                  prefix_len=prefix_len)
         else:
             m, cache["attn"] = attn.attn_prefill(
                 p["mixer"], h, cfg=cfg, layer_type=layer_type,
@@ -83,6 +89,13 @@ def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
         if cache is not None:
             cache["rec"] = st
     x = x + m
+    if "cross" in p and memory is not None:
+        hx = _norm(x, p["norm_x"], cfg)
+        x = x + attn.cross_attn_forward(p["cross"], hx, memory, cfg=cfg)
+        if cache is not None:
+            cache["cross"] = {k: v.to(x.dtype) for k, v in
+                              attn.init_cross_cache(p["cross"], memory,
+                                                    cfg).items()}
     h2 = _norm(x, p["norm2"], cfg)
     if layer_type == "W":
         f = mlp_mod.channel_mix_forward(p["ffn"], h2)
@@ -97,51 +110,66 @@ def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
 
 
 def layer_forward(p: Params, x: Tensor, *, cfg: ModelConfig, layer_type: str,
-                  is_moe: bool = False) -> Tuple[Tensor, Tensor]:
-    """Full-sequence layer over positions 0..T-1. Returns (x, aux_loss)
-    (aux is 0 but for an MoE FFN)."""
-    check_layer(layer_type, is_moe)
-    out, aux, _ = _layer_seq(p, x, cfg, layer_type, is_moe, None)
+                  is_moe: bool = False, prefix_len: int = 0,
+                  memory: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Full-sequence layer over positions 0..T-1, the first
+    ``prefix_len`` bidirectional, cross-attending to ``memory`` where the
+    layer has ``cross``. Returns (x, aux_loss) (aux is 0 but for an MoE
+    FFN)."""
+    check_layer(layer_type)
+    out, aux, _ = _layer_seq(p, x, cfg, layer_type, is_moe, None,
+                             prefix_len, memory)
     return out, aux
 
 
 def layer_prefill(p: Params, x: Tensor, *, cfg: ModelConfig,
-                  layer_type: str, max_len: int, is_moe: bool = False
-                  ) -> Tuple[Tensor, Params]:
+                  layer_type: str, max_len: int, is_moe: bool = False,
+                  memory: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
     """:func:`layer_forward` over positions 0..T-1 that also returns the
     layer's decode cache, equal to what T decode steps from
     :func:`init_layer_cache` leave: for "R" the scan's last state and the
     conv's last W-1 inputs, for "W" the state after position T-1 and the
     last normed inputs of the mixer and of the channel mix, for attention
     the ring of the last min(T, cache_len) keys and values (see
-    ``attn.attn_prefill``). An MoE FFN routes each position's tokens as
-    those decode steps do, with their capacity."""
-    check_layer(layer_type, is_moe)
-    out, _, cache = _layer_seq(p, x, cfg, layer_type, is_moe, max_len)
+    ``attn.attn_prefill``), for cross-attention ``memory``'s keys and
+    values. An MoE FFN routes each position's tokens as those decode
+    steps do, with their capacity."""
+    check_layer(layer_type)
+    out, _, cache = _layer_seq(p, x, cfg, layer_type, is_moe, max_len,
+                               memory=memory)
     return out, cache
 
 
 def init_layer_cache(cfg: ModelConfig, layer_type: str, batch: int,
-                     max_len: int, dtype=torch.float32, device=None
-                     ) -> Params:
+                     max_len: int, dtype=torch.float32, device=None,
+                     cross: bool = False) -> Params:
+    """An empty decode cache of one layer; with ``cross``, zero
+    cross-attention keys and values of ``cfg.enc_frames`` frames."""
     check_layer(layer_type)
     if layer_type in ATTN_BLOCKS:
-        return {"attn": attn.init_attn_cache(cfg, layer_type, batch, max_len,
-                                             dtype, device)}
-    if layer_type == "R":
-        return {"rec": rglru_mod.init_rglru_state(cfg, batch, dtype, device)}
-    return {"rec": rwkv_mod.init_rwkv6_state(cfg, batch, dtype, device),
-            "ffn_prev": torch.zeros((batch, cfg.d_model), dtype=dtype,
-                                    device=device)}
+        c = {"attn": attn.init_attn_cache(cfg, layer_type, batch, max_len,
+                                          dtype, device)}
+    elif layer_type == "R":
+        c = {"rec": rglru_mod.init_rglru_state(cfg, batch, dtype, device)}
+    else:
+        c = {"rec": rwkv_mod.init_rwkv6_state(cfg, batch, dtype, device),
+             "ffn_prev": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                     device=device)}
+    if cross:
+        shape = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.resolved_head_dim)
+        c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return c
 
 
 def layer_decode(p: Params, x: Tensor, cache: Params, index: int, *,
                  cfg: ModelConfig, layer_type: str, is_moe: bool = False
                  ) -> Tuple[Tensor, Params]:
     """Single-token decode. x: (B, 1, D). Attention caches are updated in
-    place (``attn.attn_decode``); an MoE FFN routes the B tokens as one
-    group and drops its aux loss."""
-    check_layer(layer_type, is_moe)
+    place (``attn.attn_decode``); a layer with ``cross`` attends to the
+    cached encoder keys and values (which stay as they are); an MoE FFN
+    routes the B tokens as one group and drops its aux loss."""
+    check_layer(layer_type)
     new_cache = dict(cache)
     h = _norm(x, p["norm1"], cfg)
     if layer_type in ATTN_BLOCKS:
@@ -155,6 +183,10 @@ def layer_decode(p: Params, x: Tensor, cache: Params, index: int, *,
         m, new_cache["rec"] = rwkv_mod.rwkv6_decode(p["mixer"], h,
                                                     cache["rec"], cfg)
     x = x + m
+    if "cross" in p:
+        hx = _norm(x, p["norm_x"], cfg)
+        x = x + attn.cross_attn_decode(p["cross"], hx, cache["cross"],
+                                       cfg=cfg)
     h2 = _norm(x, p["norm2"], cfg)
     if layer_type == "W":
         f = mlp_mod.channel_mix_forward(p["ffn"], h2,

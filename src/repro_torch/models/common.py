@@ -1,6 +1,6 @@
-"""Shared layers of the model zoo (the port's copy of the parts of
-``repro/models/common.py`` the serving and training paths use): plain
-functions over tensors, parameters in plain dicts."""
+"""Shared layers of the model zoo (the port's copy of
+``repro/models/common.py``): plain functions over tensors, parameters in
+plain dicts."""
 from __future__ import annotations
 
 import math
@@ -36,6 +36,16 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5
+               ) -> Tensor:
+    """LayerNorm in fp32, cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
 def softcap(x: Tensor, cap: float) -> Tensor:
     """Gemma-2 soft capping: cap * tanh(x / cap). No-op if cap <= 0."""
     if cap <= 0.0:
@@ -61,6 +71,26 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_at(positions: Tensor, dim: int) -> Tensor:
+    """Whisper-style fixed sinusoidal embeddings of ``positions`` (P,):
+    (P, dim) fp32, sin(p·div) in the even columns and cos in the odd
+    ones, div = exp(-ln(10000)·2i/dim)."""
+    div = torch.exp(-math.log(10000.0)
+                    * torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=positions.device) / dim)
+    ang = positions.to(torch.float32)[:, None] * div
+    out = torch.zeros((positions.shape[0], dim), dtype=torch.float32,
+                      device=positions.device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> Tensor:
+    """The embeddings of positions 0..length-1: (length, dim) fp32."""
+    return sinusoid_at(torch.arange(length, device=device), dim)
 
 
 def gelu(x: Tensor) -> Tensor:

@@ -1,11 +1,11 @@
-"""Public model API: ``Model(cfg)`` bundles init / loss / grad / prefill
-/ decode (the port's copy of ``repro/models/model.py`` for decoder-only
-models). Parameters, gradients and caches are plain dicts of tensors;
-``Model`` only carries the static config."""
+"""Public model API: ``Model(cfg)`` bundles init / loss / grad / encode /
+prefill / decode for any registered architecture (the port's copy of
+``repro/models/model.py``). Parameters, gradients and caches are plain
+dicts of tensors; ``Model`` only carries the static config."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig, get_arch, reduced
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import softcap
+from repro_torch.models.frontends import make_batch
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tensor = torch.Tensor
@@ -65,10 +66,17 @@ class Model:
         return value_and_grad
 
     # -- serving ------------------------------------------------------------
-    def init_cache(self, params: Params, batch: int, max_len: int
-                   ) -> Params:
-        """An empty decode cache in the weights' dtype."""
-        return tfm.init_cache(params, self.cfg, batch, max_len)
+    def init_cache(self, params: Params, batch: int, max_len: int,
+                   memory: Optional[Tensor] = None) -> Params:
+        """An empty decode cache in the weights' dtype; an
+        encoder-decoder's holds ``memory``'s cross-attention keys and
+        values (zeros without it)."""
+        return tfm.init_cache(params, self.cfg, batch, max_len,
+                              memory=memory)
+
+    def encode(self, params: Params, frames: Tensor) -> Tensor:
+        """The encoder's output (B, F, D) for frames (B, F, D)."""
+        return tfm.encode(params, self.cfg, frames)
 
     def prefill(self, params: Params, batch: Dict[str, Tensor],
                 max_len: int) -> Tuple[Tensor, Params]:
@@ -76,12 +84,19 @@ class Model:
         cache. Returns (last logits (B, V), cache), the same as the
         reference's ``Model.prefill`` (T decode steps); the cache is in
         the weights' dtype (the reference's ``cache_dtype`` option is not
-        kept: decode computes in one dtype)."""
+        kept: decode computes in one dtype). An encoder-decoder encodes
+        ``batch["frames"]`` first. ``batch["patches"]`` is ignored, as the
+        reference's ``Model.prefill`` ignores it: the image prefix runs
+        only through ``forward_hidden`` (``serve.make_prefill_step``, the
+        loss)."""
         tokens = batch["tokens"]
         if tokens.shape[1] > max_len:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens does not "
                              f"fit max_len {max_len}")
-        h, cache = tfm.prefill_hidden(params, self.cfg, tokens, max_len)
+        memory = (self.encode(params, batch["frames"]) if self.cfg.is_encdec
+                  else None)
+        h, cache = tfm.prefill_hidden(params, self.cfg, tokens, max_len,
+                                      memory=memory)
         logits = tfm.logits_fn(params, self.cfg, h[:, -1:])[:, 0]
         return softcap(logits, self.cfg.logit_softcap), cache
 
@@ -92,21 +107,9 @@ class Model:
     # -- helpers ------------------------------------------------------------
     def dummy_batch(self, seed: int, batch: int, seq: int, *,
                     device: DeviceLike = "cpu") -> Dict[str, Tensor]:
-        """Random tokens from a CPU ``torch.Generator`` seeded with
-        ``seed``, so the same seed gives the same tokens on every device,
-        with the reference's labels (the tokens shifted left, 0 last) and
-        mask (1, the last position 0)."""
-        gen = torch.Generator()
-        gen.manual_seed(seed)
-        tokens = torch.randint(0, self.cfg.vocab_size, (batch, seq),
-                               generator=gen)
-        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                           dim=1)
-        mask = torch.ones(batch, seq)
-        mask[:, -1] = 0.0
-        dev = torch.device(device)
-        return {"tokens": tokens.to(dev), "labels": labels.to(dev),
-                "mask": mask.to(dev)}
+        """``frontends.make_batch`` in fp32: the same seed gives the same
+        batch on every device."""
+        return make_batch(seed, self.cfg, batch, seq, device=device)
 
 
 def build_model(arch: str, smoke: bool = False) -> Model:

@@ -1,12 +1,13 @@
-"""Decoder assembled from blocks, with the chunked LM loss, a prefill
-that fills the decode cache and a one-token decode step (the port's copy
-of ``repro/models/transformer.py`` for decoder-only models).
+"""Decoder and encoder-decoder transformer assembled from blocks, with
+the stub modality inputs (a VLM's patch prefix, an audio encoder's
+frames), the chunked LM loss, a prefill that fills the decode cache and a
+one-token decode step (the port's copy of ``repro/models/transformer.py``).
 
 The reference stacks the layers of repeated pattern cycles into
-``scanned`` groups for ``lax.scan``; PyTorch loops in Python, so the port
-keeps one list, ``params["layers"][i]`` and ``cache["layers"][i]``
-(``repro_torch.convert`` unstacks). ``encode`` waits for the Whisper
-slice.
+``scanned`` groups for ``lax.scan``, and the encoder's layers into one
+stack; PyTorch loops in Python, so the port keeps lists,
+``params["layers"][i]``, ``params["encoder"]["layers"][i]`` and
+``cache["layers"][i]`` (``repro_torch.convert`` unstacks).
 """
 from __future__ import annotations
 
@@ -18,27 +19,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
+from repro_torch.models.attention import init_cross_cache
 from repro_torch.models.common import (chunked_cross_entropy, dense_init,
-                                       remat, rms_norm, softcap)
+                                       remat, rms_norm, sinusoid_at,
+                                       sinusoidal_positions, softcap)
 from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port does not run yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models (Whisper's "
-                                  "encoder) are not ported yet")
-    if cfg.vis_tokens:
-        raise NotImplementedError("the VLM image prefix (PaliGemma) is not "
-                                  "ported yet")
-    if cfg.rope_theta <= 0 and cfg.family != "ssm":
-        raise NotImplementedError("sinusoidal positions (Whisper) are not "
-                                  "ported yet")
-    for i, lt in enumerate(cfg.layer_types()):
-        blocks.check_layer(lt, cfg.is_moe_layer(i))
+def _sinusoidal(cfg: ModelConfig) -> bool:
+    """Whether the model adds fixed sinusoidal positions to its input
+    (no RoPE, and not an attention-free SSM)."""
+    return cfg.rope_theta <= 0 and cfg.family != "ssm"
 
 
 # ---------------------------------------------------------------------------
@@ -46,11 +40,15 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
                 ) -> Params:
-    """Random weights drawn from ``gen`` on its device, layer by layer,
-    then the embedding (and the LM head when untied)."""
-    check_supported(cfg)
+    """Random weights drawn from ``gen`` on its device, layer by layer
+    (with cross-attention in an encoder-decoder's), then the embedding,
+    the LM head when untied, and an encoder-decoder's encoder: "A"
+    layers with a dense FFN and no cross-attention, and its final
+    norm."""
     d, v = cfg.d_model, cfg.vocab_size
-    layers = [blocks.init_layer(gen, cfg, lt, cfg.is_moe_layer(i), dtype)
+    cross = cfg.is_encdec
+    layers = [blocks.init_layer(gen, cfg, lt, cfg.is_moe_layer(i), dtype,
+                                cross=cross)
               for i, lt in enumerate(cfg.layer_types())]
     params: Params = {
         "embed": dense_init(gen, (v, d), scale=0.02, dtype=dtype),
@@ -59,6 +57,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, v), dtype=dtype)
+    if cross:
+        params["encoder"] = {
+            "layers": [blocks.init_layer(gen, cfg, "A", False, dtype)
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": torch.zeros(d, dtype=dtype, device=gen.device)}
     return params
 
 
@@ -87,47 +90,79 @@ def logits_fn(params, cfg: ModelConfig, h: Tensor) -> Tensor:
 
 
 def _run_layers(params, cfg: ModelConfig, x: Tensor, *,
-                max_len: Optional[int] = None
+                max_len: Optional[int] = None, prefix_len: int = 0,
+                memory: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tensor, Optional[List[Params]]]:
-    """Apply all decoder layers over positions 0..T-1: (hidden, the sum
-    of the layers' aux losses, caches); with ``max_len`` also each
-    layer's decode cache (and the aux 0: prefill drops it). Without it
-    and with ``cfg.remat``, each layer is rematerialized in the backward
-    (the reference's ``jax.checkpoint`` per layer): only the layer
-    boundaries are saved."""
+    """Apply all decoder layers over positions 0..T-1, the first
+    ``prefix_len`` bidirectional, cross-attending to ``memory``:
+    (hidden, the sum of the layers' aux losses, caches); with ``max_len``
+    also each layer's decode cache (and the aux 0: prefill drops it).
+    Without it and with ``cfg.remat``, each layer is rematerialized in
+    the backward (the reference's ``jax.checkpoint`` per layer): only the
+    layer boundaries are saved."""
     caches = [] if max_len is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (lp, lt) in enumerate(zip(params["layers"], cfg.layer_types())):
         moe = cfg.is_moe_layer(i)
         if max_len is None:
             fwd = partial(blocks.layer_forward, cfg=cfg, layer_type=lt,
-                          is_moe=moe)
+                          is_moe=moe, prefix_len=prefix_len, memory=memory)
             x, a = remat(fwd, lp, x) if cfg.remat else fwd(lp, x)
             aux = aux + a
         else:
             x, c = blocks.layer_prefill(lp, x, cfg=cfg, layer_type=lt,
-                                        max_len=max_len, is_moe=moe)
+                                        max_len=max_len, is_moe=moe,
+                                        memory=memory)
             caches.append(c)
     return x, aux, caches
 
 
+def encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
+    """Whisper-style encoder over stub frame embeddings (B, F, D), cast
+    to the weights' dtype: sinusoidal positions, then "A" layers that
+    attend over all F frames both ways, then the final RMS norm
+    (gemma-style, as the reference's; not Whisper's LayerNorm)."""
+    enc = params["encoder"]
+    f = frames.shape[1]
+    x = frames.to(enc["final_norm"].dtype)
+    x = x + sinusoidal_positions(f, cfg.d_model, x.device).to(x.dtype)
+    for lp in enc["layers"]:
+        x, _ = blocks.layer_forward(lp, x, cfg=cfg, layer_type="A",
+                                    prefix_len=f)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
 def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Tensor]
                    ) -> Tuple[Tensor, Tensor, int]:
-    """Embed and run the layers. Returns (hidden (B,S,D), aux_loss,
-    text_offset): the MoE layers' aux losses summed (0 without MoE), the
-    offset 0 (no modality prefix)."""
-    check_supported(cfg)
+    """Embed the tokens (scaled) after a VLM's ``patches`` when the batch
+    has them (cast, not scaled; they attend both ways), add sinusoidal
+    positions over S where the model uses them, and run the layers (an
+    encoder-decoder's against its encoded ``frames``). Returns (hidden
+    (B,S,D), aux_loss, text_offset): the MoE layers' aux losses summed (0
+    without MoE), the offset the prefix length P (0 without patches)."""
     x = _embed(params, cfg, batch["tokens"])
-    h, aux, _ = _run_layers(params, cfg, x)
+    prefix_len, memory = 0, None
+    if cfg.vis_tokens > 0 and "patches" in batch:
+        patches = batch["patches"]
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        prefix_len = patches.shape[1]
+    if cfg.is_encdec:
+        memory = encode(params, cfg, batch["frames"])
+    if _sinusoidal(cfg):
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)
+    h, aux, _ = _run_layers(params, cfg, x, prefix_len=prefix_len,
+                            memory=memory)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h, aux, 0
+    return h, aux, prefix_len
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor],
             loss_chunk: int = 512) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token LM loss (+ the MoE aux). ``batch``: tokens
-    (B, S), optional labels and mask (default: the tokens shifted left,
-    the last position masked)."""
+    (B, S_text), optional labels and mask (default: the tokens shifted
+    left, the last position masked), optional patches / frames for a VLM
+    / an encoder-decoder; the patch prefix's positions carry no loss."""
     h, aux, off = forward_hidden(params, cfg, batch)
     tokens = batch["tokens"]
     labels = batch.get("labels")
@@ -146,37 +181,52 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor],
     return lm + aux, {"lm_loss": lm, "aux_loss": aux}
 
 
-def prefill_hidden(params, cfg: ModelConfig, tokens: Tensor, max_len: int
-                   ) -> Tuple[Tensor, Params]:
-    """:func:`forward_hidden` through ``blocks.layer_prefill``: (hidden,
-    cache) with the cache as T decode steps would have left it."""
-    check_supported(cfg)
+def prefill_hidden(params, cfg: ModelConfig, tokens: Tensor, max_len: int,
+                   memory: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
+    """:func:`forward_hidden` of the text alone through
+    ``blocks.layer_prefill``, cross-attending to ``memory`` (the encoded
+    frames): (hidden, cache) with the cache as T decode steps from
+    ``init_cache(..., memory=memory)`` would have left it."""
     x = _embed(params, cfg, tokens)
-    h, _, caches = _run_layers(params, cfg, x, max_len=max_len)
+    if _sinusoidal(cfg):
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)
+    h, _, caches = _run_layers(params, cfg, x, max_len=max_len,
+                               memory=memory)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), {"layers": caches}
 
 
 # ---------------------------------------------------------------------------
 # decode
 
-def init_cache(params, cfg: ModelConfig, batch: int, max_len: int
-               ) -> Params:
+def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
+               memory: Optional[Tensor] = None) -> Params:
     """An empty decode cache in the weights' dtype on their device (the
-    decode path computes in one dtype, so the cache takes the weights')."""
-    check_supported(cfg)
+    decode path computes in one dtype, so the cache takes the weights');
+    an encoder-decoder's layers hold ``memory``'s cross-attention keys
+    and values, or zeros of ``cfg.enc_frames`` frames without it."""
     emb = params["embed"]
-    return {"layers": [
-        blocks.init_layer_cache(cfg, lt, batch, max_len, emb.dtype,
-                                emb.device)
-        for lt in cfg.layer_types()]}
+    cross = cfg.is_encdec
+    layers = [blocks.init_layer_cache(cfg, lt, batch, max_len, emb.dtype,
+                                      emb.device, cross=cross)
+              for lt in cfg.layer_types()]
+    if cross and memory is not None:
+        for lc, lp in zip(layers, params["layers"]):
+            lc["cross"] = {k: v.to(emb.dtype) for k, v in
+                           init_cross_cache(lp["cross"], memory, cfg).items()}
+    return {"layers": layers}
 
 
 def decode_step(params, cfg: ModelConfig, cache: Params, token: Tensor,
                 index: int) -> Tuple[Tensor, Params]:
     """One decode step. token: (B,) integer; index: the absolute position
-    (a Python int). Returns (logits (B, V), new cache); attention caches
-    are updated in place."""
+    (a Python int), whose sinusoid is added where the model uses them.
+    Returns (logits (B, V), new cache); attention caches are updated in
+    place."""
     x = _embed(params, cfg, token[:, None])
+    if _sinusoidal(cfg):
+        pos = torch.full((1,), index, device=x.device)
+        x = x + sinusoid_at(pos, cfg.d_model).to(x.dtype)
     new_layers = []
     for i, (lp, lc, lt) in enumerate(zip(params["layers"], cache["layers"],
                                          cfg.layer_types())):

@@ -35,7 +35,10 @@ def make_serve_step(model: Model, mesh=None) -> Tuple[Callable, None]:
 
 
 def make_prefill_step(model: Model, mesh=None) -> Callable:
-    """Full-sequence forward producing last-position logits."""
+    """``prefill(params, batch_inputs)``: the full-sequence forward
+    (``forward_hidden``: a VLM's ``patches`` as a bidirectional prefix,
+    an encoder-decoder's ``frames`` encoded) producing last-position
+    logits. The one serve path where the image prefix runs."""
     _no_mesh(mesh)
     cfg = model.cfg
 

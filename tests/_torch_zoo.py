@@ -1,8 +1,10 @@
 """Helpers of the model-zoo tests that hold the port against the JAX
-reference (``test_torch_moe.py``, ``test_torch_rwkv6.py``): relative
+reference (``test_torch_moe.py``, ``test_torch_rwkv6.py``,
+``test_torch_whisper.py``, ``test_torch_paligemma.py``): relative
 errors, weights carried from the port's seeded init to the reference,
 tree comparison, and the reference's decode-step prefill with its decode
-step compiled once. Not a test module (leading underscore)."""
+step and its encoder compiled once. Not a test module (leading
+underscore)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,18 +64,25 @@ def assert_trees(got, want, tol) -> float:
 
 class RefDecoder:
     """The reference's ``Model.prefill`` restated as the loop its
-    ``lax.scan`` runs (``init_cache``, then ``transformer.decode_step``
-    at positions 0..T-1), with the decode step jitted once and reused
-    for the greedy steps after the prompt."""
+    ``lax.scan`` runs (``init_cache``, an encoder-decoder's holding the
+    encoded frames' cross-attention keys and values, then
+    ``transformer.decode_step`` at positions 0..T-1), with the decode
+    step jitted once and reused for the greedy steps after the prompt,
+    and the encoder (``transformer.encode``) jitted once."""
 
     def __init__(self, jcfg, jparams):
         self.cfg, self.params = jcfg, jparams
         self.step = jax.jit(
             lambda p, c, t, i: jtfm.decode_step(p, jcfg, c, t, i))
+        self._encode = jax.jit(lambda p, f: jtfm.encode(p, jcfg, f))
 
-    def prefill(self, tokens: np.ndarray, max_len: int):
+    def encode(self, frames: np.ndarray):
+        return self._encode(self.params, jnp.asarray(frames))
+
+    def prefill(self, tokens: np.ndarray, max_len: int, memory=None):
         b, t = tokens.shape
-        cache = jtfm.init_cache(self.params, self.cfg, b, max_len)
+        cache = jtfm.init_cache(self.params, self.cfg, b, max_len,
+                                memory=memory)
         logits = None
         for i in range(t):
             logits, cache = self.step(self.params, cache,

@@ -129,12 +129,14 @@ def test_dense_weights_held_are_the_analytic_count_and_final_norm(arch):
 
 
 def test_ported_archs_resolve_and_the_others_raise():
+    """Every arch the reference registers resolves (the last two came
+    with the encoder-decoder and VLM paths); any other name raises."""
     for arch in DENSE + ("recurrentgemma-2b", "mixtral-8x7b",
-                         "llama4-maverick-400b-a17b", "rwkv6-1.6b"):
+                         "llama4-maverick-400b-a17b", "rwkv6-1.6b",
+                         "whisper-small", "paligemma-3b"):
         assert get_arch(arch).name == arch
-    for arch in ("whisper-small", "paligemma-3b"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_arch(arch)
+    with pytest.raises(KeyError, match="unknown arch 'whisper-large'"):
+        get_arch("whisper-large")
 
 
 # ---------------------------------------------------------------------------

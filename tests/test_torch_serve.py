@@ -45,11 +45,13 @@ from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.configs.base import ModelConfig, get_arch, reduced
 from repro_torch.launch import serve as serve_mod
-from repro_torch.models import attention, blocks, common, mlp, rglru
+from repro_torch.models import attention, common, mlp, rglru
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model, build_model
+from repro_torch.optim import adamw
 from repro_torch.serve.decode import (greedy_generate, make_prefill_step,
                                       make_serve_step)
+from repro_torch.train import make_plain_step
 
 T_PROMPT, MAX_LEN = 96, 104          # T > window 64: the ring wraps
 
@@ -168,17 +170,26 @@ def test_full_width_layout_and_true_parameter_count():
 
 
 def test_unported_arch_and_layers_raise():
-    with pytest.raises(KeyError, match="'whisper-small' is not ported yet"):
-        get_arch("whisper-small")
-    base = CFG
-    for override, words in ((dict(enc_layers=2), "encoder-decoder"),
-                            (dict(vis_tokens=8), "VLM image prefix")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{words}.* not ported yet"):
-            Model(replace(base, **override)).init(0, device="cpu")
+    """What the port still refuses, each naming the missing feature:
+    one-token attention over a cache of more than 2^20 slots (the
+    reference's chunked branch), the serve steps over a mesh and
+    training one model over a mesh. Every registered arch now builds."""
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        get_arch("no-such-arch")
+    q = torch.zeros(1, 1, 1, 1, 4)
+    big = torch.zeros(1, 1, 1, 4).expand(1, (1 << 20) + 1, 1, 4)
+    valid = torch.ones((1 << 20) + 1, dtype=torch.bool)
     with pytest.raises(NotImplementedError,
-                       match="cross-attention layers.* not ported yet"):
-        blocks.check_layer("A", cross=True)
+                       match="2\\^20 slots .* not ported yet"):
+        attention._decode_attn(q, big, big, valid, 0.0)
+    model = Model(CFG)
+    for make in (make_serve_step, make_prefill_step):
+        with pytest.raises(NotImplementedError,
+                           match="serving over a mesh is not ported yet"):
+            make(model, object())
+    with pytest.raises(NotImplementedError,
+                       match="training over a mesh is not ported yet"):
+        make_plain_step(model, object(), adamw(1e-3))
 
 
 def test_init_on_cuda_without_gpu_raises(monkeypatch):
@@ -544,6 +555,12 @@ def test_serve_is_the_reference_loop_on_given_prompts(monkeypatch, prompt):
             tok = int(jnp.argmax(logits[0]))
             want.append(tok)
         assert r.generated == want
+    for bad in (t - 1, t + 1):
+        with pytest.raises(ValueError, match="prompt_len - vis_tokens"):
+            serve_mod.serve("recurrentgemma-2b", batch=1, requests=2,
+                            prompt_len=t, gen=gen, device="cpu",
+                            prompts=[torch.tensor(prompt[i, :bad]).long()
+                                     for i in range(2)])
 
 
 def test_serve_cli_main(capsys):
