@@ -80,7 +80,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    patches; d_model 64, fp32), the card against the CPU: the same
    checks, the encoder's output (whisper) and ``make_prefill_step`` with
    patches (paligemma) besides, the cache's cross-attention keys and
-   values included, no kernel launched;
+   values included, no kernel launched; then the federated steps of
+   those families at the same test configurations, the card against the
+   CPU under the bounds of the recurrentgemma and dense ones: mixtral's
+   fused step (its MoE layers dropping tokens), rwkv6's, whisper's (with
+   frames) and paligemma's (with patches) two-phase steps and
+   paligemma's fused step (which cuts the text offset), the MoE routes
+   equal, no kernel launched;
 5. main paths, with every launch counter reset just before the path and
    read just after it:
    * HEADLINE and DEFENSE, each five rounds of ``FLServer.run_round``
@@ -183,6 +189,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      reputation summing to about 1; step ms, client tokens/s, peak
      memory; FL_TRAIN_TWO_PHASE first checks that two full-width
      gradients of one client's batch are bit-identical;
+   * FL_TRAIN_MIXTRAL, FL_TRAIN_RWKV6, FL_TRAIN_WHISPER,
+     FL_TRAIN_PALIGEMMA: the same step, optimizer, clients and clouds at
+     the full published widths in fp32, each in its config's strategy:
+     mixtral-8x7b cut to 2 of its 32 layers, fused, its MoE layers
+     routing the 4 x 2048 tokens of the global batch (the routed pairs
+     dropped counted); rwkv6-1.6b's 24 layers, two-phase, 1 x 256 tokens
+     a client and one timed step; whisper-small's 12 + 12 layers,
+     two-phase, 448 text tokens after 1500 stub frames; paligemma-3b's 18
+     layers, two-phase, 256 stub patches before 1024 text tokens; every
+     kernel never; less than 2 GiB allocated before each, the weights
+     released after it; step ms, client tokens/s, peak memory, gradient
+     evaluations a step;
    * FL_TRAIN_EXAMPLE: ``examples/federated_llm_train_torch.py`` at its
      defaults (60 steps); no kernel; the loss falls and the attacker's
      reputation ends below the honest mean;
@@ -396,11 +414,37 @@ TRAIN = dict(arch="recurrentgemma-2b", batch=2, seq=2048, warmup=1, steps=3,
 # the federated train paths: the same model, optimizer and token stream
 # as TRAIN through the Cost-TrustFL step of each strategy, 4 clients of
 # 1 x 2048 tokens in 2 clouds, 3 selected, one 2048-token reference
-# sequence a cloud; one warm-up step, then STEPS timed ones
+# sequence a cloud; one warm-up step, then STEPS timed ones; ``layers``
+# cuts the depth (None: the published one)
 FL_TRAIN = dict(TRAIN, clients=4, clouds=2, selected=3, per=1, ref_rows=1,
-                steps=2)
-FL_TRAIN_PATHS = {"fl_train_two_phase": "two_phase",
-                  "fl_train_fused": "fused"}
+                steps=2, layers=None)
+# then the other families at their full published widths, fp32, each
+# through its config's strategy: mixtral-8x7b cut to 2 of its 32 layers
+# (a layer holds 1.41 B expert weights, 16 B each with the gradient and
+# AdamW's moments); rwkv6-1.6b on 256 tokens a row (four 64-token chunks:
+# its per-token loop makes a step launch-bound) and one timed step;
+# whisper-small's 448 text tokens after 1500 stub frames; paligemma-3b's
+# 256 stub patches before 1024 text tokens (``seq`` counts both).
+# llama4-maverick's one MoE layer alone would take 64 GB in fp32: it
+# trains reduced, on the CPU only
+FL_TRAIN_PATHS = {
+    "fl_train_two_phase": dict(FL_TRAIN, strategy="two_phase"),
+    "fl_train_fused": dict(FL_TRAIN, strategy="fused"),
+    "fl_train_mixtral": dict(FL_TRAIN, arch="mixtral-8x7b", layers=2,
+                             strategy="fused"),
+    "fl_train_rwkv6": dict(FL_TRAIN, arch="rwkv6-1.6b", seq=256, steps=1,
+                           strategy="two_phase"),
+    "fl_train_whisper": dict(FL_TRAIN, arch="whisper-small", seq=448,
+                             strategy="two_phase"),
+    "fl_train_paligemma": dict(FL_TRAIN, arch="paligemma-3b",
+                               seq=256 + 1024, strategy="two_phase"),
+}
+# phase 4's federated steps of those families, at their test
+# configurations (``_family_test_model``), in their configs' strategies;
+# paligemma in both, so the fused step cuts its text offset on the card
+FL_TRAIN_FAMILIES = {"mixtral": ("fused",), "rwkv6": ("two_phase",),
+                     "whisper": ("two_phase",),
+                     "paligemma": ("two_phase", "fused")}
 # examples/federated_llm_train_torch.py at its own defaults
 FL_EXAMPLE = dict(steps=60, seq=128, d_model=256, layers=4)
 
@@ -1405,17 +1449,19 @@ def _family_test_model(family: str):
 
 
 @contextmanager
-def recorded_routes():
+def recorded_routes(pairs: bool = True):
     """Every ``models.moe.route`` while open, as (device type, sorted
-    kept (expert, token) pairs, tokens dropped) in call order."""
+    kept (expert, token) pairs, or None without ``pairs``, routed pairs
+    dropped) in call order."""
     from repro_torch.models import moe
 
     real, seen = moe.route, []
 
     def spy(combine, cap):
         rt = real(combine, cap)
-        seen.append((combine.device.type,
-                     sorted(zip(rt.expert.tolist(), rt.token.tolist())),
+        kept = (sorted(zip(rt.expert.tolist(), rt.token.tolist()))
+                if pairs else None)
+        seen.append((combine.device.type, kept,
                      int((combine > 0).sum()) - len(rt.token)))
         return rt
     moe.route = spy
@@ -1780,13 +1826,18 @@ def fl_train_agreement_phase(torch, ops, dev, seq: int = 96,
                              chunk: int = 40):
     """One two-phase and one fused federated step (4 clients in 2 clouds,
     3 selected, SGD) at recurrentgemma-2b's test configuration and at the
-    dense test configuration, on one rank holding the card's NCCL and the
-    CPU's gloo groups: the card against the CPU from the same weights,
-    batches and Ω — the selected mask exact, the cost units within 1e-6
-    relative, the loss, φ, trust, β and reputation within 1e-5, the
-    params within 1e-4; the card's scan launches as
-    :func:`fl_scan_launches` predicts, none on the CPU. Then that two
-    gradients of one batch are bit-identical on the card."""
+    dense test configuration (``seq`` tokens a row), then the steps of
+    ``FL_TRAIN_FAMILIES`` at their family test configurations (mixtral's
+    MoE dropping tokens in the fused step, rwkv6, whisper with frames,
+    paligemma with patches in both strategies), on one rank holding the
+    card's NCCL and the CPU's gloo groups: the card against the CPU from
+    the same weights, batches and Ω — the selected mask exact, the cost
+    units within 1e-6 relative, the loss, φ, trust, β and reputation
+    within 1e-5, the params within 1e-4, the MoE routes (every capacity
+    selection's kept pairs) equal; the card's scan launches as
+    :func:`fl_scan_launches` predicts, none on the CPU. Then, for each
+    configuration, that two gradients of one batch are bit-identical on
+    the card."""
     import numpy as np
     from repro_torch.configs.base import FLConfig
     from repro_torch.federated import sharded
@@ -1798,37 +1849,45 @@ def fl_train_agreement_phase(torch, ops, dev, seq: int = 96,
     fl = FLConfig(n_clouds=2, clients_per_round=3)
     sharded.ensure_group(dev)
     worst, out = {}, {}
-    for cfg_name, model in (("rg", _serve_test_model()),
-                            ("dense", _dense_test_model())):
+    both = ("two_phase", "fused")
+    cases = [("rg", _serve_test_model(), seq, both),
+             ("dense", _dense_test_model(), seq, both)]
+    cases += [(fam, *_family_test_model(fam), strategies)
+              for fam, strategies in FL_TRAIN_FAMILIES.items()]
+    for cfg_name, model, t, strategies in cases:
         p_cpu = model.init(0, device=cpu)
         omega = draw_omega(1, model.cfg.vocab_size, fl.sketch_dim, cpu)
-        batch = model.dummy_batch(1, 4, seq)
+        batch = model.dummy_batch(1, 4, t)
         ref = {k: v.reshape((2, 1) + tuple(v.shape[1:]))
-               for k, v in model.dummy_batch(2, 2, seq).items()}
-        for strategy in ("two_phase", "fused"):
-            runs = {}
-            for side, d in (("host", cpu), ("card", dev)):
-                params = tree_map(lambda x: x.to(d, copy=True), p_cpu)
-                opt = sgd(0.05)
-                step, topo = make_fl_train_step(
-                    model, ClientMesh(4), fl, opt, strategy=strategy,
-                    loss_chunk=chunk)
-                rep = torch.tensor([0.3, 0.2, 0.25, 0.25], device=d)
-                key = (omega,) if strategy == "fused" else ()
-                ops.reset_launch_counts()
-                params, _, rep, met = step(
-                    params, opt[0](params), rep,
-                    {k: v.to(d) for k, v in batch.items()},
-                    {k: v.to(d) for k, v in ref.items()}, *key)
-                counts = ops.launch_counts()
-                runs[side] = dict(
-                    met={k: v.cpu() for k, v in met.items()}, rep=rep.cpu(),
-                    params=[p.cpu() for p in tree_leaves(params)],
-                    scans=(counts["linear_scan"], counts["linear_scan_bwd"]),
-                    others=sum(v for k, v in counts.items()
-                               if not k.startswith("linear_scan")))
-            host, card = runs["host"], runs["card"]
+               for k, v in model.dummy_batch(2, 2, t).items()}
+        for strategy in strategies:
             what = f"fl_train agreement {cfg_name} {strategy}"
+            runs = {}
+            with recorded_routes() as seen:
+                for side, d in (("host", cpu), ("card", dev)):
+                    params = tree_map(lambda x: x.to(d, copy=True), p_cpu)
+                    opt = sgd(0.05)
+                    step, topo = make_fl_train_step(
+                        model, ClientMesh(4), fl, opt, strategy=strategy,
+                        loss_chunk=chunk)
+                    rep = torch.tensor([0.3, 0.2, 0.25, 0.25], device=d)
+                    key = (omega,) if strategy == "fused" else ()
+                    ops.reset_launch_counts()
+                    params, _, rep, met = step(
+                        params, opt[0](params), rep,
+                        {k: v.to(d) for k, v in batch.items()},
+                        {k: v.to(d) for k, v in ref.items()}, *key)
+                    counts = ops.launch_counts()
+                    runs[side] = dict(
+                        met={k: v.cpu() for k, v in met.items()},
+                        rep=rep.cpu(),
+                        params=[p.cpu() for p in tree_leaves(params)],
+                        scans=(counts["linear_scan"],
+                               counts["linear_scan_bwd"]),
+                        others=sum(v for k, v in counts.items()
+                                   if not k.startswith("linear_scan")))
+            drops = _same_routes(seen, dev, what)
+            host, card = runs["host"], runs["card"]
             want = fl_scan_launches(strategy, model.cfg, card["met"], 4, 2)
             check(card["scans"] == want and host["scans"] == (0, 0)
                   and card["others"] == 0 == host["others"],
@@ -1849,9 +1908,13 @@ def fl_train_agreement_phase(torch, ops, dev, seq: int = 96,
                   and params <= 1e-4,
                   f"{what}: card vs CPU drift {drift}, cost units {cost}, "
                   f"params {params}")
+            if cfg_name == "mixtral":
+                check(sum(drops) > 0, f"{what}: the MoE layers dropped "
+                      f"nothing")
             worst[f"{cfg_name}_{strategy}"] = dict(
                 drift, round_cost_units=cost, params=params,
-                scan_launches=card["scans"])
+                scan_launches=card["scans"], routes=len(drops),
+                dropped=sum(drops))
         p_dev = tree_map(lambda x: x.to(dev), p_cpu)
         b_dev = {k: v[:1].to(dev) for k, v in batch.items()}
         stable = grads_bit_stable(torch, model, p_dev, b_dev, chunk)
@@ -1865,46 +1928,68 @@ def fl_train_agreement_phase(torch, ops, dev, seq: int = 96,
 
 
 def fl_train_path_phase(torch, ops, dev, path: str):
-    """``FL_TRAIN`` through ``train.make_fl_train_step`` (the strategy
-    ``FL_TRAIN_PATHS[path]``): recurrentgemma-2b at full width (26 layers,
-    fp32, ``remat``), AdamW as ``TRAIN`` uses it, 4 clients of 1 x 2048
-    tokens in 2 clouds, 3 selected, one 2048-token reference sequence a
-    cloud, all on one NCCL rank the step starts and ends; one warm-up
-    step, then ``FL_TRAIN["steps"]`` timed ones. The launch counters are
-    reset just before each step and read just after: linear_scan and
-    linear_scan_bwd as :func:`fl_scan_launches` predicts, every FL kernel
-    never. The loss finite, the reputation summing to about 1. The
-    two-phase path first checks that two gradients of one client's batch
-    are bit-identical at full width (pass B recomputes pass A's)."""
+    """``FL_TRAIN_PATHS[path]`` through ``train.make_fl_train_step`` in
+    its strategy: the arch at its full published widths (fp32 weights,
+    every layer rematerialized; the depth cut where ``layers`` says), AdamW
+    as ``TRAIN`` uses it, 4 clients of 1 x ``seq`` positions in 2 clouds,
+    3 selected, one reference row a cloud, all on one NCCL rank the step
+    starts and ends; text tokens from the token stream, a VLM's patches
+    and an encoder-decoder's frames 0.02·N(0, 1) from a seeded generator
+    on the card; one warm-up step, then ``steps`` timed ones. Less than 2
+    GiB allocated before the path, the weights released after it. The
+    launch counters are reset just before each step and read just after:
+    linear_scan and linear_scan_bwd as :func:`fl_scan_launches` predicts
+    (none without an "R" layer), every FL kernel never. The loss finite,
+    the reputation summing to about 1, ``embed`` and ``final_norm``
+    finite, the optimizer at the step count. A two-phase path first
+    checks that two gradients of one client's batch are bit-identical at
+    full width (pass B recomputes pass A's); an MoE path counts the
+    routed (token, expert) pairs its layers drop, over the global
+    batch."""
     import math
+    from dataclasses import replace
 
-    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.base import FLConfig, get_arch
     from repro_torch.data import make_token_stream, token_batches
-    from repro_torch.models.model import build_model
+    from repro_torch.models.model import Model
     from repro_torch.optim import adamw, clip_by_global_norm, cosine_schedule
     from repro_torch.train import ClientMesh, make_fl_train_step
 
-    ft, strategy = FL_TRAIN, FL_TRAIN_PATHS[path]
-    model = build_model(ft["arch"])
-    cfg = model.cfg
-    check(cfg.remat and cfg.num_layers == 26,
-          f"{path}: {cfg.num_layers} layers, remat {cfg.remat}")
+    ft = FL_TRAIN_PATHS[path]
+    strategy = ft["strategy"]
+    check_memory_free(torch, path)
+    cfg = get_arch(ft["arch"])
+    if ft["layers"] is not None:
+        cfg = replace(cfg, num_layers=ft["layers"])
+    check(cfg.remat, f"{path}: remat off")
+    model = Model(cfg)
+    layers = cfg.num_layers
     n, k, per, seq = ft["clients"], ft["clouds"], ft["per"], ft["seq"]
+    text = seq - cfg.vis_tokens
+    rows_n = n * per + k * ft["ref_rows"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(ft["seed"], device=dev, dtype=torch.float32)
     stream = make_token_stream(ft["stream_tokens"], cfg.vocab_size,
                                seed=ft["seed"])
-    windows = token_batches(stream, batch=n * per + k * ft["ref_rows"],
-                            seq=seq, seed=ft["seed"])
+    windows = token_batches(stream, batch=rows_n, seq=text, seed=ft["seed"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ft["seed"])
+    stubs = {"patches": cfg.vis_tokens,
+             "frames": cfg.enc_frames if cfg.is_encdec else 0}
 
     def batches():
         toks = torch.tensor(next(windows), device=dev).long()
         rows = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-                "mask": torch.ones(toks.shape[0], seq, device=dev)}
+                "mask": torch.ones(toks.shape[0], text, device=dev)}
+        for key, m in stubs.items():
+            if m:
+                rows[key] = 0.02 * torch.randn(
+                    (rows_n, m, cfg.d_model), generator=gen, device=dev)
         batch = {key: v[:n * per] for key, v in rows.items()}
-        ref = {key: v[n * per:].reshape((k, ft["ref_rows"], seq))
+        ref = {key: v[n * per:].reshape((k, ft["ref_rows"])
+                                        + tuple(v.shape[1:]))
                for key, v in rows.items()}
         return batch, ref
 
@@ -1934,18 +2019,19 @@ def fl_train_path_phase(torch, ops, dev, path: str):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     counts = {name: 0 for name in ops.launch_counts()}
-    losses, step_s, per_step, evals = [], [], [], []
+    losses, step_s, per_step, evals, dropped = [], [], [], [], []
     with step:
         for i in range(ft["warmup"] + ft["steps"]):
             batch, ref = batches()
             key = (ft["seed"] + i,) if strategy == "fused" else ()
             torch.cuda.synchronize()
             ops.reset_launch_counts()
-            t1 = time.perf_counter()
-            params, opt_state, rep, met = step(params, opt_state, rep, batch,
-                                               ref, *key)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t1
+            with recorded_routes(pairs=False) as seen:
+                t1 = time.perf_counter()
+                params, opt_state, rep, met = step(params, opt_state, rep,
+                                                   batch, ref, *key)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
             got = ops.launch_counts()
             scan, bwd = fl_scan_launches(strategy, cfg, met, n, k)
             want = {name: 0 for name in got}
@@ -1955,6 +2041,7 @@ def fl_train_path_phase(torch, ops, dev, path: str):
             per_step.append(got)
             evals.append(_fl_counts(met, n, k) if strategy == "two_phase"
                          else 1)
+            dropped.append(sum(r[2] for r in seen))
             counts = {name: counts[name] + got[name] for name in counts}
             losses.append(float(met["loss"]))
             rep_sum = float(rep.sum())
@@ -1974,10 +2061,12 @@ def fl_train_path_phase(torch, ops, dev, path: str):
     torch.cuda.empty_cache()
     tokens = n * per * seq
     return counts, dict(
-        arch=ft["arch"], strategy=strategy, setup_s=setup_s, losses=losses,
-        step_s=step_s, step_ms=1e3 * statistics.median(step_s),
+        arch=ft["arch"], layers=layers, strategy=strategy, seq=seq,
+        setup_s=setup_s, losses=losses, step_s=step_s,
+        step_ms=1e3 * statistics.median(step_s),
         tokens_per_s=tokens / statistics.median(step_s), peak_gib=peak,
         launches_per_step=per_step, grad_evals_per_step=evals,
+        moe_dropped_per_step=dropped if cfg.n_experts else None,
         grads_bit_stable=stable, rep=rep.cpu().tolist(), metrics=metrics)
 
 
@@ -2646,8 +2735,10 @@ def main() -> int:
     worst["fl_train"] = fl_train_agreement_phase(torch, ops, dev)
     phase_s["agreement_fl_train"] = time.perf_counter() - t0
     print(f"agreement card vs CPU, one two-phase and one fused federated "
-          f"step (4 clients, 2 clouds, SGD, fp32, test configurations), "
-          f"and two gradients of one batch on the card leaf for leaf: "
+          f"step (4 clients, 2 clouds, SGD, fp32, test configurations: "
+          f"recurrentgemma, dense; then mixtral fused, rwkv6, whisper, "
+          f"paligemma two-phase, paligemma fused), and two gradients of one "
+          f"batch on the card leaf for leaf: "
           f"{worst['fl_train']} "
           f"({phase_s['agreement_fl_train']:.1f} s)", flush=True)
     for fam in FAMILY_TESTS:
@@ -2736,19 +2827,21 @@ def main() -> int:
           f"GiB; launches per step {tr['launches_per_step']} "
           f"({phase_s['train']:.1f} s)", flush=True)
 
-    for path in FL_TRAIN_PATHS:
+    for path, spec in FL_TRAIN_PATHS.items():
         t0 = time.perf_counter()
         counts[path], main[path] = fl_train_path_phase(torch, ops, dev, path)
         phase_s[path] = time.perf_counter() - t0
         ft = main[path]
         print(f"main path {path}: launches {counts[path]}; {ft}", flush=True)
-        print(f"main path {path} ({FL_TRAIN['arch']}, fp32, "
-              f"{FL_TRAIN['clients']} clients x {FL_TRAIN['seq']} tokens, "
-              f"{card}): losses {[round(x, 4) for x in ft['losses']]}, step "
-              f"{ft['step_ms']:.1f} ms (median of {FL_TRAIN['steps']}), "
+        print(f"main path {path} ({spec['arch']}, {ft['layers']} layers, "
+              f"{spec['strategy']}, fp32, {spec['clients']} clients x "
+              f"{spec['seq']} positions, {card}): losses "
+              f"{[round(x, 4) for x in ft['losses']]}, step "
+              f"{ft['step_ms']:.1f} ms (median of {spec['steps']}), "
               f"{ft['tokens_per_s']:.1f} client tokens/s, peak "
               f"{ft['peak_gib']:.3f} GiB; gradient evaluations per step "
-              f"{ft['grad_evals_per_step']}; gradients bit-stable "
+              f"{ft['grad_evals_per_step']}; MoE pairs dropped per step "
+              f"{ft['moe_dropped_per_step']}; gradients bit-stable "
               f"{ft['grads_bit_stable']} ({phase_s[path]:.1f} s)", flush=True)
     t0 = time.perf_counter()
     counts["fl_train_example"], main["fl_train_example"] = \

@@ -1,5 +1,9 @@
-"""Federated training launcher: Cost-TrustFL train steps of any ported
-``--arch`` (the port's copy of ``repro/launch/train.py``).
+"""Federated training launcher: Cost-TrustFL train steps of any
+registered ``--arch`` (the port's copy of ``repro/launch/train.py``),
+each with its config's ``fl_strategy`` unless ``--strategy`` says
+otherwise; a VLM's batch carries its ``patches`` and an
+encoder-decoder's its ``frames`` (``Model.dummy_batch``), and a VLM's
+``--seq`` counts the image tokens before the text.
 
 The clients lie over the ranks of ``torch.distributed``'s default group:
 the one ``torchrun`` starts (its environment read here; each rank takes
@@ -11,6 +15,8 @@ reference reads off the mesh.
 
   python -m repro_torch.launch.train --arch gemma2-2b --smoke --steps 10 \\
       --device cpu
+  python -m repro_torch.launch.train --arch paligemma-3b --smoke \\
+      --steps 1 --device cpu
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \\
       recurrentgemma-2b --smoke
 """
@@ -64,10 +70,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    model = build_model(args.arch, smoke=args.smoke)
+    vis = model.cfg.vis_tokens
+    if args.seq <= vis:
+        raise ValueError(f"--seq {args.seq} leaves no text after the {vis} "
+                         f"image tokens of {args.arch}: give --seq > {vis}")
     joined = _torchrun_group(args.device)
     device = resolve_device(joined or args.device)
     lead = not dist.is_initialized() or dist.get_rank() == 0
-    model = build_model(args.arch, smoke=args.smoke)
     fl = FLConfig(n_clouds=args.n_clouds, clients_per_round=4)
     opt = adamw(args.lr)
     strategy = args.strategy or model.cfg.fl_strategy

@@ -16,13 +16,20 @@ routed to it, and those slots add exactly 0. So a decode step at batch 1
 reads the weights of its k experts, not of all E. The reference's
 sharding hints (``constrain``, the model axis) have no counterpart on
 one device.
+
+Under :func:`route_over_ranks` a full-sequence forward routes the tokens
+of every rank of a ``torch.distributed`` group as one group, each rank
+computing only its own rows: the reference's forward of a batch sharded
+over its data axes, whose semantics are those of the unsharded program.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, gelu
@@ -92,6 +99,65 @@ def route(combine: Tensor, cap: int) -> Routing:
     return Routing(ex, token, gate, counts)
 
 
+class _Ranks(NamedTuple):
+    group: Optional[dist.ProcessGroup]
+    world: int
+    rank: int
+
+
+_OVER_RANKS: List[_Ranks] = []     # the innermost route_over_ranks last
+
+
+@contextmanager
+def route_over_ranks(group: Optional[dist.ProcessGroup] = None
+                     ) -> Iterator[None]:
+    """While open, every full-sequence :func:`moe_forward` (``group=None``)
+    routes the tokens of all ranks of ``group`` (``None``: the default
+    group) as one group. Each rank holds an equal, contiguous block of the
+    global batch's rows, in rank order, and computes only those rows;
+    every rank must run the same MoE forwards in the same order (the
+    backward's rematerialized ones too, so keep it open over the
+    backward). With one rank it changes nothing and issues no
+    collective."""
+    world = dist.get_world_size(group)
+    if world > 1:
+        _OVER_RANKS.append(_Ranks(group, world, dist.get_rank(group)))
+    try:
+        yield
+    finally:
+        if world > 1:
+            _OVER_RANKS.pop()
+
+
+def _route_global(combine: Tensor, probs: Tensor, cfg: ModelConfig,
+                  ranks: _Ranks) -> Tuple[Routing, Tensor]:
+    """(this rank's kept pairs, its share of the aux loss) of the global
+    routing, from its own (n, E) ``combine`` and ``probs``: the keep set
+    of :func:`route` over every rank's ``combine`` gathered (global token
+    = rank·n + local token; the capacity of world·n tokens), restricted to
+    this rank's tokens; the gates from the local ``combine`` (they carry
+    the router's gradient). The aux share is E·w·Σ_e f_e·Σ_local p_e / N
+    with f_e the fraction of all N tokens routed to e (no gradient, as
+    the reference's ``combine > 0``): summed over the ranks, the
+    reference's aux loss and its gradient."""
+    n, e = combine.shape
+    with torch.no_grad():
+        parts = [torch.empty_like(combine) for _ in range(ranks.world)]
+        dist.all_gather(parts, combine.detach().contiguous(),
+                        group=ranks.group)
+        every = torch.cat(parts)
+        n_all = every.shape[0]
+        rt = route(every[None], moe_capacity(cfg, n_all))
+        frac_tokens = torch.mean((every > 0).to(torch.float32), dim=0)
+    lo = ranks.rank * n
+    mine = (rt.token >= lo) & (rt.token < lo + n)
+    ex, token = rt.expert[mine], rt.token[mine] - lo
+    counts = tuple(torch.bincount(ex, minlength=e).tolist())
+    aux = e * torch.sum(frac_tokens * probs.sum(0) / n_all) \
+        * cfg.router_aux_weight
+    return Routing(ex, token, combine[token, ex], counts), aux
+
+
 def _expert_ffn(params, e: int, x: Tensor, cfg: ModelConfig) -> Tensor:
     if "w_gate" in params:
         act = torch.nn.functional.silu if cfg.ffn_act == "swiglu" else gelu
@@ -108,9 +174,12 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig,
     ``group=B`` routes each position's B tokens as a group of its own,
     as the reference's prefill does (T decode steps of B tokens). The
     aux loss is the reference's Switch-style E·Σ_e f_e·p_e times
-    ``router_aux_weight`` in fp32, averaged over the groups."""
+    ``router_aux_weight`` in fp32, averaged over the groups. Under
+    :func:`route_over_ranks`, ``group=None`` routes every rank's tokens
+    as one group and the aux is this rank's share of theirs."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    ranks = _OVER_RANKS[-1] if group is None and _OVER_RANKS else None
     if group is None:
         xg = x.reshape(1, b * t, d)
     elif group == b:
@@ -119,7 +188,6 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig,
         raise ValueError(f"group={group}: route all tokens (None) or each "
                          f"position's {b} tokens ({b})")
     g, n, _ = xg.shape
-    cap = moe_capacity(cfg, n)
 
     logits = (xg @ params["router"]).to(torch.float32)    # (G, n, E)
     probs = torch.softmax(logits, dim=-1)
@@ -128,12 +196,14 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig,
     # per-token-per-expert combined weight; 0 where not routed
     combine = torch.zeros_like(probs).scatter(-1, top_e, top_p)
 
-    frac_tokens = torch.mean((combine > 0).to(torch.float32), dim=1)
-    frac_prob = torch.mean(probs, dim=1)
-    aux = torch.mean(e * torch.sum(frac_tokens * frac_prob, dim=-1)
-                     * cfg.router_aux_weight)
-
-    rt = route(combine, cap)
+    if ranks is None:
+        frac_tokens = torch.mean((combine > 0).to(torch.float32), dim=1)
+        frac_prob = torch.mean(probs, dim=1)
+        aux = torch.mean(e * torch.sum(frac_tokens * frac_prob, dim=-1)
+                         * cfg.router_aux_weight)
+        rt = route(combine, moe_capacity(cfg, n))
+    else:
+        rt, aux = _route_global(combine[0], probs[0], cfg, ranks)
     xt = xg.reshape(g * n, d)
     out = torch.zeros_like(xt)
     start = 0

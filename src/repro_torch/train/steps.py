@@ -30,7 +30,12 @@ which the step's ``close()`` ends.
 * ``fused`` (beyond-paper): per-client signatures (a Rademacher sketch Ω
   of the lm-head gradient) from one forward without gradients, the trust
   weights from them, then ONE backward of the trust-weighted loss over
-  each rank's rows, all-reduced.
+  each rank's rows, all-reduced. Both batch forwards route MoE tokens
+  over the whole global batch (``moe.route_over_ranks``), as the
+  reference's forward of the sharded batch does: the capacity, the kept
+  tokens and the aux loss are the global batch's. A two-phase client's
+  gradient routes over the client's rows, as in the reference's
+  ``shard_map`` groups.
 
 Both return ``(params, opt_state, rep, metrics)`` with the reference's
 metric keys. The optimizer updates ``params`` and its state in place and
@@ -58,6 +63,7 @@ from repro_torch.federated.sharded import (ensure_group, group_ranks,
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import chunked_cross_entropy, softcap
 from repro_torch.models.model import Model
+from repro_torch.models.moe import route_over_ranks
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -235,12 +241,18 @@ def _full_norm(tree: Any) -> Tensor:
 
 
 def _rows(batch: Dict[str, Tensor], lo: int, hi: int) -> Dict[str, Tensor]:
+    """Rows [lo, hi) of every leaf (tokens, labels, mask, and a VLM's
+    ``patches`` or an encoder-decoder's ``frames``)."""
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
 def _per_client(batch: Dict[str, Tensor], n: int) -> int:
-    """Rows a client: the global batch's leading dim over the clients."""
-    b = batch["tokens"].shape[0]
+    """Rows a client: the global batch's leading dim over the clients
+    (every leaf must have it)."""
+    rows = {k: v.shape[0] for k, v in batch.items()}
+    b = rows["tokens"]
+    if any(r != b for r in rows.values()):
+        raise ValueError(f"the batch's leaves differ in rows: {rows}")
     if b % n:
         raise ValueError(f"a global batch of {b} rows does not split over "
                          f"{n} clients")
@@ -470,10 +482,11 @@ def draw_omega(key: KeyLike, vocab: int, sketch_dim: int,
 
 def _weighted_grad(params, cfg: ModelConfig, batch: Dict[str, Tensor],
                    mask: Tensor, denom: Tensor, loss_chunk: int):
-    """Gradient of Σ mask·nll / ``denom`` (+ the MoE aux loss, 0 for
-    every arch the port runs) over ``batch``'s rows: a rank's share of
-    the fused step's trust-weighted loss, whose denominator spans the
-    global batch."""
+    """Gradient of Σ mask·nll / ``denom`` + the MoE aux loss (0 without
+    MoE layers) over ``batch``'s rows: a rank's share of the fused
+    step's trust-weighted loss, whose denominator spans the global batch.
+    Under ``moe.route_over_ranks`` the aux is the rank's share of the
+    global batch's, so the ranks' gradients sum to the reference's."""
     xs = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         p = tree_unflatten(params, xs)
@@ -505,9 +518,13 @@ def make_fused_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
         per = _per_client(batch, n)
         lo, hi = r.i0 * per, (r.i0 + r.n_loc) * per
         # --- per-client signatures from one forward without gradients
+        # (MoE layers route this rank's rows with every rank's, as the
+        # reference's forward of the whole global batch)
         with torch.no_grad():
-            losses_loc, sigs_loc, _ = _signatures(
-                params, cfg, _rows(batch, lo, hi), r.n_loc, omega, loss_chunk)
+            with route_over_ranks(r.group):
+                losses_loc, sigs_loc, _ = _signatures(
+                    params, cfg, _rows(batch, lo, hi), r.n_loc, omega,
+                    loss_chunk)
             ref_flat = {key_: v.reshape((-1,) + tuple(v.shape[2:]))
                         for key_, v in ref_batch.items()}
             _, ref_sigs, ref_norms = _signatures(params, cfg, ref_flat, k,
@@ -550,8 +567,9 @@ def make_fused_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
         mask_w = batch["mask"].to(torch.float32) \
             * w.repeat_interleave(per)[:, None]
         denom = torch.clamp(torch.sum(mask_w), min=1.0)
-        g = _weighted_grad(params, cfg, _rows(batch, lo, hi), mask_w[lo:hi],
-                           denom, loss_chunk)
+        with route_over_ranks(r.group):
+            g = _weighted_grad(params, cfg, _rows(batch, lo, hi),
+                               mask_w[lo:hi], denom, loss_chunk)
         for x in tree_leaves(g):
             r.all_sum(x)
         params, opt_state = opt_update(g, opt_state, params)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro_torch import convert
 from repro_torch.models.model import Model
@@ -39,6 +40,23 @@ def weights(cfg, seed):
     tree (the port's init spares the reference's, which runs op by op)."""
     tp = Model(cfg).init(seed, device="cpu")
     return tp, to_jax(tp, cfg)
+
+
+def ref_kept(params, x, cfg):
+    """The reference's routing (``repro/models/moe.py:56-79``) restated
+    in JAX: the (expert, token) pairs its ``lax.top_k(combine.T, cap)``
+    keeps with a weight > 0, and the count of routed pairs."""
+    b, t, d = x.shape
+    xt = x.reshape(b * t, d)
+    probs = jax.nn.softmax((xt @ params["router"]).astype(jnp.float32), -1)
+    top_p, top_e = jax.lax.top_k(probs, cfg.top_k)
+    top_p = top_p / jnp.maximum(top_p.sum(-1, keepdims=True), 1e-9)
+    combine = jax.vmap(lambda c, i, p: c.at[i].add(p))(
+        jnp.zeros(probs.shape, jnp.float32), top_e, top_p)
+    gate, idx = jax.lax.top_k(combine.T, jmoe.moe_capacity(cfg, b * t))
+    gate, idx = np.asarray(gate), np.asarray(idx)
+    return ({(e, int(idx[e, c])) for e, c in zip(*np.nonzero(gate > 0))},
+            int((np.asarray(combine) > 0).sum()))
 
 
 def assert_trees(got, want, tol) -> float:

@@ -1,8 +1,11 @@
 """The port's federated LLM train steps against the JAX reference on
 identical inputs: ``select_clients`` on exact ties, ``MeshTopology``, the
 two-phase and fused Cost-TrustFL steps at world size 1 against the
-reference's step on a (4, 1) mesh of host devices, spawned gloo ranks
-against world size 1, the launcher and the example.
+reference's step on a (4, 1) mesh of host devices (every family: gemma2,
+recurrentgemma, mixtral's MoE in the fused step, rwkv6, whisper with
+frames, paligemma with patches in both strategies), spawned gloo ranks
+against world size 1, MoE routing over the ranks against the reference's
+routing of all rows, the launcher on every family, and the example.
 
 The reference's steps run once a module, in one subprocess with 4 host
 devices (as ``tests/test_fl_steps.py`` runs them), on the port's seeded
@@ -22,12 +25,14 @@ Tolerances, fp32 on the CPU, with their reasons:
   two steps' update (params after − before, over the whole tree) too.
 """
 import ast
+import dataclasses
 import importlib.util
 import os
 import pickle
 import subprocess
 import sys
 import textwrap
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -139,10 +144,11 @@ _REFERENCE = textwrap.dedent("""
     fl = FLConfig(**spec["fl"])
     out = {}
     for name, case in spec["cases"].items():
-        arch, d_model, layers, num_layers, strategy = case["case"]
+        arch, d_model, layers, num_layers, strategy, over = case["case"]
         cfg = reduced(get_arch(arch), d_model=d_model, layers=layers)
         if num_layers is not None:
             cfg = replace(cfg, num_layers=num_layers)
+        cfg = replace(cfg, **over)
         opt = sgd(spec["lr"])
         step, topo = make_fl_train_step(Model(cfg), mesh, fl, opt,
                                         strategy=strategy,
@@ -172,8 +178,25 @@ _REFERENCE = textwrap.dedent("""
 def reference(tmp_path_factory):
     """Every case's ``STEPS`` chained reference steps, from the port's
     seeded weights and the same numpy batches: {case: {"steps": [metrics,
-    "rep", "omega"], "params": the final reference tree}}."""
-    work = tmp_path_factory.mktemp("fl_steps")
+    "rep", "omega"], "params": the final reference tree}}. Under
+    pytest-xdist the workers of one session share one run (the first to
+    take the lock computes it into the session's temporary root; the
+    others wait and read it), since the cases' tests may land on several
+    workers."""
+    from filelock import FileLock
+
+    shared = os.environ.get("PYTEST_XDIST_WORKER") is not None
+    work = (tmp_path_factory.getbasetemp().parent if shared
+            else tmp_path_factory.mktemp("fl_steps"))
+    out = work / "fl_steps_reference.pkl"
+    with FileLock(str(out) + ".lock"):
+        if not out.exists():
+            _run_reference(work, out)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def _run_reference(work: Path, out: Path) -> None:
     cases = {}
     for name, case in CASES.items():
         params, steps = inputs(name)
@@ -181,16 +204,15 @@ def reference(tmp_path_factory):
                            params=convert.model_params_to_numpy(
                                params, port_cfg(name)))
     spec = dict(cases=cases, fl=FL, lr=LR, loss_chunk=LOSS_CHUNK)
-    with open(work / "in.pkl", "wb") as f:
+    with open(work / "fl_steps_in.pkl", "wb") as f:
         pickle.dump(spec, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    part = work / "fl_steps_reference.part"
     proc = subprocess.run(
-        [sys.executable, "-c", _REFERENCE, str(work / "in.pkl"),
-         str(work / "out.pkl")], env=env, capture_output=True, text=True,
-        timeout=600)
+        [sys.executable, "-c", _REFERENCE, str(work / "fl_steps_in.pkl"),
+         str(part)], env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    with open(work / "out.pkl", "rb") as f:
-        return pickle.load(f)
+    part.rename(out)
 
 
 def _drifts(got: dict, want: dict) -> dict:
@@ -270,18 +292,13 @@ def test_world_size_one_matches_reference(name, reference, monkeypatch):
 # ---------------------------------------------------------------------------
 # (c) spawned gloo ranks against world size 1
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_spawned_ranks_match_world_size_one(world, tmp_path):
-    """``world`` gloo ranks, each a process (``_torch_fl_step_worker.py``),
-    run ``SPAWNED`` (gemma2's two-phase and fused steps, Ω from its seed)
-    on the mesh ``mesh_axes(2, 4, world)`` (2 x 1: a cloud a rank; 2 x 2:
-    two ranks a cloud). Every rank's outputs equal rank 0's, and those
-    hold to this process's world-size-1 run within 1e-5. The spawned run
-    has a time limit, past which the test fails."""
+def _spawn(tmp_path, world: int, *mode: str):
+    """``world`` gloo ranks of ``_torch_fl_step_worker.py`` (a time limit
+    each, past which the test fails): each rank's npz fields."""
     out = tmp_path / "rank"
     procs = [subprocess.Popen(
         [sys.executable, str(WORKER), str(r), str(world),
-         str(tmp_path / "store"), str(out)],
+         str(tmp_path / "store"), str(out), *mode],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]
     logs = []
@@ -294,7 +311,20 @@ def test_spawned_ranks_match_world_size_one(world, tmp_path):
                 p.kill()
                 p.wait()
     assert all(p.returncode == 0 for p in procs), logs
-    ranks = [dict(np.load(f"{out}_{r}.npz")) for r in range(world)]
+    return [dict(np.load(f"{out}_{r}.npz")) for r in range(world)]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_spawned_ranks_match_world_size_one(world, tmp_path):
+    """``world`` gloo ranks, each a process (``_torch_fl_step_worker.py``),
+    run ``SPAWNED`` (gemma2's two-phase and fused steps, and mixtral's
+    fused step, whose MoE layers drop tokens: Ω from its seed) on the
+    mesh ``mesh_axes(2, 4, world)`` (2 x 1: a cloud a rank; 2 x 2: two
+    ranks a cloud). Every rank's outputs equal rank 0's, and those hold
+    to this process's world-size-1 run within 1e-5, the mask exact: the
+    fused step routes MoE tokens over the global batch, whatever the
+    ranks."""
+    ranks = _spawn(tmp_path, world)
     for got in ranks[1:]:
         assert got.keys() == ranks[0].keys()
         for key, v in got.items():
@@ -308,6 +338,46 @@ def test_spawned_ranks_match_world_size_one(world, tmp_path):
             print(f"{world} ranks, {name} step {t}: {drift}")
             assert max(drift.values()) <= 1e-5, (name, t, drift)
         assert _rel(ranks[0][f"{name}/params"], flat(params)) <= 1e-5
+
+
+def test_moe_routes_over_ranks_as_the_reference_over_all_rows(tmp_path):
+    """``moe.route_over_ranks`` on two gloo ranks, each running one MoE
+    layer on half of ``moe_inputs``' rows (mixtral's layout, capacity
+    factor 0.5: the global capacity keeps 16 of 64 tokens an expert, one
+    rank's own would keep 8 of 32), against the reference's
+    ``moe_forward`` on all rows: the kept (expert, token) pairs equal the
+    reference's routing; the rows' outputs, the ranks' aux shares summed
+    and their gradients in the router summed within 1e-5 relative of the
+    reference's output, aux loss and ``jax.grad`` of it."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch as jget_arch
+    from repro.configs import reduced as jreduced
+    from repro.models import moe as jmoe
+
+    from _torch_fl_step_worker import moe_inputs
+    from _torch_zoo import ref_kept
+
+    cfg, params, x = moe_inputs()
+    jcfg = replace(jreduced(jget_arch("mixtral-8x7b"), d_model=cfg.d_model),
+                   capacity_factor=cfg.capacity_factor)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    ranks = _spawn(tmp_path, 2, "moe")
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    out, aux = jmoe.moe_forward(jp, jnp.asarray(x), jcfg)
+    g_router = jax.grad(lambda r: jmoe.moe_forward(
+        dict(jp, router=r), jnp.asarray(x), jcfg)[1])(jp["router"])
+    kept, routed = ref_kept(jp, jnp.asarray(x), jcfg)
+    for rank in ranks:
+        assert {tuple(p) for p in rank["kept"].tolist()} == kept
+    assert routed - len(kept) > 0          # the global routing drops
+    drift = dict(
+        out=_rel(np.concatenate([r["out"] for r in ranks]), out),
+        aux=_rel(sum(r["aux"] for r in ranks), aux),
+        aux_grad=_rel(sum(r["aux_grad_router"] for r in ranks), g_router))
+    print(f"route_over_ranks, 2 ranks: {drift}, dropped "
+          f"{routed - len(kept)} of {routed}")
+    assert max(drift.values()) <= 1e-5, drift
 
 
 @pytest.mark.parametrize("strategy", ["two_phase", "fused"])
@@ -331,6 +401,26 @@ def test_step_refuses_a_batch_that_does_not_split(strategy):
     assert not dist.is_initialized()
 
 
+def test_step_refuses_leaves_of_unequal_rows():
+    """A VLM batch whose patches hold fewer rows than its tokens: the
+    step raises before any forward and ends the group its call
+    started."""
+    from repro_torch.models.model import Model
+    from repro_torch.optim import sgd
+    from repro_torch.train import make_fl_train_step
+
+    name = "paligemma_two_phase"
+    params, [(batch, ref)] = inputs(name)[0], inputs(name)[1][:1]
+    batch = dict(batch, patches=batch["patches"][:-1])
+    opt = sgd(0.1)
+    step, _ = make_fl_train_step(Model(port_cfg(name)), ClientMesh(4),
+                                 FLConfig(**FL), opt)
+    with step, pytest.raises(ValueError, match="differ in rows"):
+        step(params, opt[0](params), torch.full((4,), 0.25),
+             tensors(batch), tensors(ref))
+    assert not dist.is_initialized()
+
+
 def test_worker_imports_neither_jax_nor_reference():
     """The spawned ranks' code is the port's alone."""
     for path in (WORKER, ROOT / "examples" / "federated_llm_train_torch.py",
@@ -349,14 +439,35 @@ def test_worker_imports_neither_jax_nor_reference():
 # ---------------------------------------------------------------------------
 # (d) the launcher and the example
 
-def test_launcher_smoke_runs_on_the_cpu(tmp_path, capsys):
-    """``python -m repro_torch.launch.train --smoke --steps 2 --device
-    cpu`` (gemma2-2b reduced, two-phase, 4 clients in 2 clouds, a one-rank
-    gloo group it starts and ends), then the fused strategy with a
+@pytest.mark.parametrize("arch", [
+    "gemma2-2b", "mixtral-8x7b", "llama4-maverick-400b-a17b", "rwkv6-1.6b",
+    "whisper-small", "paligemma-3b"])
+def test_launcher_smoke_runs_on_the_cpu(arch, tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch ARCH --smoke --steps 1
+    --device cpu`` on every family: the config's strategy (mixtral's and
+    llama4's fused, the rest two-phase), 4 clients in 2 clouds, a
+    one-rank gloo group it starts and ends; the loss finite, whisper's
+    batches with frames and paligemma's with patches, which refuses a
+    ``--seq`` that leaves no text after its image tokens. gemma2-2b
+    (the default) runs 2 two-phase steps, then the fused strategy with a
     checkpoint, restored."""
     from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_arch
     from repro_torch.launch import train
 
+    if arch != "gemma2-2b":
+        strategy = get_arch(arch).fl_strategy
+        res = train.main(["--arch", arch, "--smoke", "--steps", "1",
+                          "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert f"clients=4 clouds=2 strategy={strategy}" in out
+        assert out.count("loss=") == 1 and not dist.is_initialized()
+        assert np.isfinite(float(res["metrics"]["loss"]))
+        if arch == "paligemma-3b":
+            with pytest.raises(ValueError, match="leaves no text after"):
+                train.main(["--arch", arch, "--smoke", "--seq", "8",
+                            "--device", "cpu"])
+        return
     train.main(["--smoke", "--steps", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "clients=4 clouds=2 strategy=two_phase" in out

@@ -51,8 +51,8 @@ from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro.models.model import Model as JModel
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
-from _torch_zoo import (RefDecoder, assert_trees, port_tokens, rel, to_jax,
-                        tree_np, weights)
+from _torch_zoo import (RefDecoder, assert_trees, port_tokens, ref_kept,
+                        rel, to_jax, tree_np, weights)
 from repro_torch import convert
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import moe
@@ -104,23 +104,6 @@ class _Spy:
     def drops(self, i):
         combine, _, rt = self.calls[i]
         return int((combine > 0).sum()) - len(rt.token)
-
-
-def _ref_kept(params, x, cfg):
-    """The reference's routing (``repro/models/moe.py:56-79``) restated
-    in JAX: the (expert, token) pairs its ``lax.top_k(combine.T, cap)``
-    keeps with a weight > 0, and the count of routed pairs."""
-    b, t, d = x.shape
-    xt = x.reshape(b * t, d)
-    probs = jax.nn.softmax((xt @ params["router"]).astype(jnp.float32), -1)
-    top_p, top_e = jax.lax.top_k(probs, cfg.top_k)
-    top_p = top_p / jnp.maximum(top_p.sum(-1, keepdims=True), 1e-9)
-    combine = jax.vmap(lambda c, i, p: c.at[i].add(p))(
-        jnp.zeros(probs.shape, jnp.float32), top_e, top_p)
-    gate, idx = jax.lax.top_k(combine.T, jmoe.moe_capacity(cfg, b * t))
-    gate, idx = np.asarray(gate), np.asarray(idx)
-    return ({(e, int(idx[e, c])) for e, c in zip(*np.nonzero(gate > 0))},
-            int((np.asarray(combine) > 0).sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +201,7 @@ def test_moe_forward_matches_reference(case, monkeypatch):
     if group is None:
         j_out, j_aux = jax.jit(lambda p, a: jmoe.moe_forward(p, a, jcfg))(
             jp, jnp.asarray(x))
-        kept, routed = _ref_kept(jp, jnp.asarray(x), jcfg)
+        kept, routed = ref_kept(jp, jnp.asarray(x), jcfg)
         assert abs(float(aux) - float(j_aux)) <= 1e-5 * float(j_aux)
     else:
         # the reference routes a position's B tokens in its decode step:
@@ -229,7 +212,7 @@ def test_moe_forward_matches_reference(case, monkeypatch):
             x[:, t:t + 1]))[0]) for t in range(shape[1])], axis=1)
         kept, routed = set(), 0
         for t in range(shape[1]):
-            k_t, r_t = _ref_kept(jp, jnp.asarray(x[:, t:t + 1]), jcfg)
+            k_t, r_t = ref_kept(jp, jnp.asarray(x[:, t:t + 1]), jcfg)
             kept |= {(e, t * shape[0] + b) for e, b in k_t}
             routed += r_t
     assert rel(out.numpy(), j_out) <= 1e-5
