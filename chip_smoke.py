@@ -204,6 +204,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    * FL_TRAIN_EXAMPLE: ``examples/federated_llm_train_torch.py`` at its
      defaults (60 steps); no kernel; the loss falls and the attacker's
      reputation ends below the honest mean;
+   * LONG_DECODE_GEMMA2: one-token decode past the 2^20-slot chunk:
+     one fp32 "A" layer at gemma2-2b's widths over 1,081,344 slots,
+     chunked against the whole-cache softmax within 1e-5, one bf16
+     layer's attention timed (chunked, whole, and PyTorch's
+     ``scaled_dot_product_attention`` as a yardstick); then gemma2-2b at
+     its full widths and 26 layers in bf16 through ``make_serve_step``
+     over 13 "A" caches of 1,081,344 slots and 13 "L" caches of 4096,
+     filled as after a prompt of 1,081,340 tokens, 8 greedy steps (the
+     last 4 wrapping the ring), each held within 5e-2 of the same step
+     through the whole cache; every kernel never; step ms against its
+     bound, peak memory;
+   * EXAMPLE_QUICKSTART, EXAMPLE_QUICKSTART_MULTI,
+     EXAMPLE_BYZANTINE_DEFENSE, EXAMPLE_SERVE_BATCH: the reference's
+     examples as ported (``examples/*_torch.py``) on the card, each
+     ``run_simulation`` counted apart: Cost-TrustFL trust_stage and
+     weighted_agg once a round, FLTrust weighted_agg once, the others
+     never; quickstart's telemetry stream valid; every table cell
+     finite; serve_batch on every arch of ``ARCH_IDS`` reduced,
+     linear_scan once per "R" layer (2 on recurrentgemma-2b), and the
+     tokens of gemma2-2b and recurrentgemma-2b equal to the CPU's;
 6. telemetry (between the FL paths and SERVE): HEADLINE, DEFENSE and
    HOST_HEADLINE, ``ROUNDS`` rounds each through ``run_simulation`` with
    a JSONL and a list sink — every event valid, the JSONL file the
@@ -284,9 +304,12 @@ FUSED_INTO_STAGE = {"trust_score": ("headline", "defense", "dropout",
                                     "host_headline", "host_defense",
                                     "telemetry_headline", "telemetry_defense",
                                     "telemetry_host_headline",
-                                    "batch_headline"),
+                                    "batch_headline", "example_quickstart",
+                                    "example_quickstart_multi",
+                                    "example_byzantine_defense"),
                     "trust_features": ("defense", "host_defense",
-                                       "telemetry_defense")}
+                                       "telemetry_defense",
+                                       "example_quickstart_multi")}
 # the test suite's small topology at the same headline knobs
 SMALL = dict(n_clouds=3, clients_per_cloud=4, clients_per_round=6,
              local_epochs=1, local_batch=8, ref_samples=16)
@@ -447,6 +470,22 @@ FL_TRAIN_FAMILIES = {"mixtral": ("fused",), "rwkv6": ("two_phase",),
                      "paligemma": ("two_phase", "fused")}
 # examples/federated_llm_train_torch.py at its own defaults
 FL_EXAMPLE = dict(steps=60, seq=128, d_model=256, layers=4)
+# one-token decode over a cache past the 2^20-slot chunk: gemma2-2b at
+# its full published widths and depth in bf16, batch 1; the 13 "A"
+# layers hold SLOTS = 2^20 + 2^15 (one whole chunk and a ragged 32,768),
+# the 13 "L" layers their 4096-token window, as if a prompt of SLOTS - 4
+# tokens had been prefilled; STEPS greedy steps from index SLOTS - 4, the
+# last four wrapping the "A" ring (index % SLOTS, as the reference's)
+LONG_DECODE = dict(arch="gemma2-2b", slots=(1 << 20) + (1 << 15), empty=4,
+                   steps=8, dtype="bfloat16", seed=0, held=2_614_222_080)
+# the reference's four examples, ported: quickstart at its defaults and
+# with the multi-feature gate; byzantine_defense on the paper's four
+# static attacks; serve_batch on every arch of ARCH_IDS, reduced
+QUICKSTART_RUNS = {"example_quickstart": [],
+                   "example_quickstart_multi": ["--trust-features", "multi",
+                                                "--rounds", "4"]}
+BYZANTINE = dict(rounds=2)
+SERVE_BATCH_ON_CPU = ("gemma2-2b", "recurrentgemma-2b")
 
 
 class PhaseError(RuntimeError):
@@ -2109,6 +2148,356 @@ def fl_example_phase(torch, ops, dev):
                         loss_last=losses[-1], rep=res["rep"].cpu().tolist())
 
 
+def _load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
+def _add_counts(a, b):
+    return {n: a.get(n, 0) + b[n] for n in b}
+
+
+def long_layer_check(torch, dev, cfg, slots: int) -> float:
+    """One "A" layer's ``attn_decode`` in fp32 at ``cfg``'s widths over a
+    cache of ``slots`` slots (keys 3·N(0, 1), so the softmax is peaked
+    enough for a relative error to mean something; values N(0, 1);
+    positions 0..slots-2 filled), chunked against the whole cache
+    (``_DECODE_CHUNK`` patched above ``slots``) from the same state:
+    within 1e-5 relative. Both write the same new key and value."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = attention.init_attn(gen, cfg)
+    cache = attention.init_attn_cache(cfg, "A", 1, slots, device=dev)
+    cache["k"].normal_(generator=gen).mul_(3.0)
+    cache["v"].normal_(generator=gen)
+    index = slots - 1
+    cache["pos"][:index] = torch.arange(index, device=dev,
+                                        dtype=torch.int32)
+    x = torch.randn(1, 1, cfg.d_model, generator=gen, device=dev)
+    real = attention._DECODE_CHUNK
+    attention._DECODE_CHUNK = 2 * slots
+    try:
+        whole, _ = attention.attn_decode(params, x, cache, index, cfg=cfg,
+                                         layer_type="A")
+    finally:
+        attention._DECODE_CHUNK = real
+    chunked, _ = attention.attn_decode(params, x, cache, index, cfg=cfg,
+                                       layer_type="A")
+    err = rel_err(torch, chunked, whole)
+    check(err <= 1e-5, f"long_decode: one fp32 layer over {slots} slots, "
+          f"chunked vs whole cache {err:.3e} apart")
+    return err
+
+
+def long_attn_record(torch, dev, cfg, slots: int):
+    """Device times (eager, between CUDA events) of one bf16 "A" layer's
+    one-token attention at ``cfg``'s widths over ``slots`` slots
+    (``_decode_attn`` with the config's softcap): chunked, and through
+    the whole-cache softmax (``_DECODE_CHUNK`` patched above ``slots``);
+    beside them PyTorch's ``scaled_dot_product_attention`` over the same
+    keys, values and mask (no softcap; a yardstick the port never calls)
+    and the bound: the layer's keys and values read once at the HBM
+    rate."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kvh
+    bf16 = dict(device=dev, dtype=torch.bfloat16)
+    k = torch.randn(1, slots, kvh, hd, generator=gen, **bf16)
+    v = torch.randn(1, slots, kvh, hd, generator=gen, **bf16)
+    q = torch.randn(1, 1, kvh, g, hd, generator=gen, **bf16)
+    valid = torch.ones(slots, dtype=torch.bool, device=dev)
+    valid[-LONG_DECODE["empty"]:] = False
+    cap = cfg.attn_softcap
+    rec = dict(chunked_ms=call_ms(
+        torch, lambda: attention._decode_attn(q, k, v, valid, cap),
+        repeats=11, inner=3))
+    real = attention._DECODE_CHUNK
+    attention._DECODE_CHUNK = 2 * slots
+    try:
+        rec["whole_cache_ms"] = call_ms(
+            torch, lambda: attention._decode_attn(q, k, v, valid, cap),
+            repeats=11, inner=3)
+    finally:
+        attention._DECODE_CHUNK = real
+    qs = q.reshape(1, 1, kvh * g, hd).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    rec["sdpa_ms"] = call_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=valid[None, None, None, :],
+            enable_gqa=True), repeats=11, inner=3)
+    rec["bound_ms"] = 2 * k.numel() * k.element_size() / HBM_BYTES_PER_S * 1e3
+    return rec
+
+
+def long_decode_phase(torch, ops, dev):
+    """``LONG_DECODE``: gemma2-2b at its full published widths and depth
+    in bf16 through ``serve.decode.make_serve_step`` over caches of
+    ``slots`` slots, chunked (``_decode_attn``'s branch past
+    ``_DECODE_CHUNK``). First one fp32 layer, chunked against the whole
+    cache (:func:`long_layer_check`), and one bf16 layer's attention
+    timed (:func:`long_attn_record`); then the cache from
+    ``Model.init_cache``, keys and values drawn from a seeded generator on
+    the card and the positions of a prefilled prompt of ``slots - empty``
+    tokens; then ``steps`` greedy steps, each also run first through the
+    whole-cache ``_sdpa`` (``_DECODE_CHUNK`` patched above ``slots``) from
+    the same state (both write the same position's key and value; the
+    chunked step's stay): logits within 5e-2 relative, finite, every
+    kernel never launched. Reports the chunked and whole-cache step ms
+    (host clock around a synchronized step), the peak memory and the
+    step's bound (every cache key and value and every weight read once
+    at the HBM rate)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import make_serve_step
+    from repro_torch.tree import tree_leaves
+
+    ld = LONG_DECODE
+    cfg, slots = get_arch(ld["arch"]), ld["slots"]
+    torch.cuda.synchronize()
+    before_gib = check_memory_free(torch, "long_decode_gemma2")
+    layer_err = long_layer_check(torch, dev, cfg, slots)
+    torch.cuda.empty_cache()
+    layer_ms = long_attn_record(torch, dev, cfg, slots)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init(ld["seed"], device=dev, dtype=ld["dtype"])
+    held = sum(x.numel() for x in tree_leaves(params))
+    check(held == ld["held"], f"long_decode: {held} weights held, "
+          f"expected {ld['held']}")
+    cache = model.init_cache(params, 1, slots)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ld["seed"])
+    n_prompt = slots - ld["empty"]
+    a_slots = []
+    for lc, lt in zip(cache["layers"], cfg.layer_types()):
+        c = lc["attn"]
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+        n = c["pos"].shape[0]
+        p = torch.arange(max(n_prompt - n, 0), n_prompt, device=dev)
+        c["pos"].fill_(-1)
+        c["pos"][p % n] = p.to(torch.int32)
+        if lt == "A":
+            a_slots.append(n)
+    check(a_slots == [slots] * cfg.layer_types().count("A"),
+          f"long_decode: A caches of {a_slots} slots")
+    kv_bytes = sum(lc["attn"][n].numel() * lc["attn"][n].element_size()
+                   for lc in cache["layers"] for n in ("k", "v"))
+    w_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    step, _ = make_serve_step(model)
+    token = torch.randint(0, cfg.vocab_size, (1,), generator=gen,
+                          device=dev)
+    real = attention._DECODE_CHUNK
+    ops.reset_launch_counts()
+    errs, ms, whole_ms, tokens = [], [], [], []
+    for i in range(ld["steps"]):
+        index = n_prompt + i
+        attention._DECODE_CHUNK = 2 * slots
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole, cache = step(params, cache, token, index)
+            torch.cuda.synchronize()
+            whole_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            attention._DECODE_CHUNK = real
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, token, index)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all()),
+              f"long_decode: step {i} logits not finite")
+        errs.append(rel_err(torch, logits.float(), whole.float()))
+        token = torch.argmax(logits, dim=-1)
+        tokens.append(int(token))
+    counts = ops.launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"long_decode: launches {counts}, expected none")
+    check(max(errs) <= 5e-2, f"long_decode: chunked vs whole-cache logits "
+          f"{max(errs):.3e} apart")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, cache, logits, whole
+    torch.cuda.empty_cache()
+    bound_ms = (kv_bytes + w_bytes) / HBM_BYTES_PER_S * 1e3
+    return counts, dict(
+        arch=ld["arch"], layers=cfg.num_layers, slots=slots,
+        a_layers=len(a_slots), chunk=real, steps=ld["steps"],
+        first_index=n_prompt, n_params=held, allocated_before_gib=before_gib,
+        kv_bytes=kv_bytes, weight_bytes=w_bytes, peak_gib=peak_gib,
+        step_ms=statistics.median(ms), step_ms_all=ms,
+        whole_cache_step_ms=statistics.median(whole_ms),
+        bound_ms=bound_ms, bound_by="bytes",
+        logits_rel_err=errs, layer_fp32_rel_err=layer_err,
+        attn_layer_bf16=layer_ms, tokens=tokens)
+
+
+def example_quickstart_phase(torch, ops, dev, work: Path):
+    """``examples/quickstart_torch.py`` on the card (``QUICKSTART_RUNS``:
+    its defaults, 10 rounds, and ``--trust-features multi --rounds 4``),
+    each with ``--telemetry`` into ``work``; every ``run_simulation`` it
+    makes is read apart, the counters reset just before it and read just
+    after: Cost-TrustFL launches trust_stage and weighted_agg once a
+    round, FedAvg nothing (no compressor); the stream passes the report
+    CLI's ``--validate-only``; accuracies, $ and reputations finite."""
+    import math
+
+    from repro_torch.telemetry import report
+
+    example = _load_example("quickstart_torch")
+    real = example.run_simulation
+    out = {}
+    for path, extra in QUICKSTART_RUNS.items():
+        runs = []
+
+        def counted(fl, **kw):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            res = real(fl, **kw)
+            torch.cuda.synchronize()
+            runs.append((kw["method"], kw["rounds"], ops.launch_counts()))
+            return res
+        events = work / f"{path}.jsonl"
+        example.run_simulation = counted
+        t0 = time.perf_counter()
+        try:
+            res = example.main(extra + ["--device", str(dev),
+                                        "--telemetry", str(events)])
+        finally:
+            example.run_simulation = real
+        wall_s = time.perf_counter() - t0
+        total = {}
+        for method, rounds, c in runs:
+            want = {n: 0 for n in c}
+            if method == "cost_trustfl":
+                want.update(trust_stage=rounds, weighted_agg=rounds)
+            check(c == want, f"{path} {method}: launches {c}, "
+                  f"expected {want}")
+            total = _add_counts(total, c)
+        check([m for m, _, _ in runs] == ["cost_trustfl", "fedavg"],
+              f"{path}: runs {runs}")
+        check(report.main([str(events), "--validate-only"]) == 0,
+              f"{path}: the telemetry stream does not validate")
+        ours, base = res["ours"], res["base"]
+        summary = [ours.final_accuracy, base.final_accuracy,
+                   ours.total_cost, base.total_cost, res["honest_rep"],
+                   res["malicious_rep"]]
+        check(all(math.isfinite(x) for x in summary),
+              f"{path}: summary {summary}")
+        out[path] = (total, dict(
+            wall_s=wall_s, rounds=runs[0][1],
+            cost_trustfl_acc=ours.final_accuracy,
+            fedavg_acc=base.final_accuracy, cost_trustfl_usd=ours.total_cost,
+            fedavg_usd=base.total_cost, honest_rep=res["honest_rep"],
+            malicious_rep=res["malicious_rep"],
+            events=len(report.load_events(events))))
+    return out
+
+
+def example_byzantine_phase(torch, ops, dev):
+    """``examples/byzantine_defense_torch.py --static --rounds 2`` on the
+    card: the five methods under the paper's four static attacks through
+    ``compare_methods``, every ``run_simulation`` it makes read apart
+    (counters reset just before, read just after): Cost-TrustFL launches
+    trust_stage and weighted_agg once a round, FLTrust weighted_agg once
+    a round, FedAvg, Krum and the trimmed mean nothing; every cell of
+    the table finite."""
+    import math
+
+    from repro_torch.federated import simulation
+
+    example = _load_example("byzantine_defense_torch")
+    real = simulation.run_simulation
+    runs = []
+
+    def counted(fl, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = real(fl, **kw)
+        torch.cuda.synchronize()
+        runs.append((kw["method"], kw["scenario"].name, ops.launch_counts()))
+        return res
+    simulation.run_simulation = counted
+    t0 = time.perf_counter()
+    try:
+        res = example.main(["--static", "--rounds", str(BYZANTINE["rounds"]),
+                            "--device", str(dev)])
+    finally:
+        simulation.run_simulation = real
+    wall_s = time.perf_counter() - t0
+    r = BYZANTINE["rounds"]
+    total = {}
+    for method, scenario, c in runs:
+        want = {n: 0 for n in c}
+        if method == "cost_trustfl":
+            want.update(trust_stage=r, weighted_agg=r)
+        elif method == "fltrust":
+            want.update(weighted_agg=r)
+        check(c == want, f"example_byzantine_defense {method} / {scenario}: "
+              f"launches {c}, expected {want}")
+        total = _add_counts(total, c)
+    table = res["table"]
+    check(len(runs) == len(table) == len(example.METHODS) * 4,
+          f"example_byzantine_defense: {len(runs)} runs, {len(table)} cells")
+    check(all(math.isfinite(a) for a in table.values()),
+          f"example_byzantine_defense: table {table}")
+    return total, dict(wall_s=wall_s, rounds=r,
+                       table={f"{m}/{n}": a for (m, n), a in table.items()})
+
+
+def example_serve_batch_phase(torch, ops, dev):
+    """``examples/serve_batch_torch.py`` on the card for every arch of
+    ``ARCH_IDS`` at its defaults (reduced, batch 4, 16-token prompts, 32
+    greedy steps), the counters reset just before each and read just
+    after: linear_scan once per "R" layer (the prefill; 2 on
+    recurrentgemma-2b's reduced R, R) and never elsewhere, every other
+    kernel never; then ``SERVE_BATCH_ON_CPU`` again on the CPU (fp32, the
+    same weights, drawn on the CPU, and prompt): the greedy token ids
+    equal the card's."""
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_arch, reduced
+
+    example = _load_example("serve_batch_torch")
+    total, out = {}, {}
+    for arch in ARCH_IDS:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = example.main(["--arch", arch, "--device", str(dev)])
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        want = {n: 0 for n in c}
+        want["linear_scan"] = reduced(get_arch(arch)).layer_types().count(
+            "R")
+        check(c == want, f"example_serve_batch {arch}: launches {c}, "
+              f"expected {want}")
+        total = _add_counts(total, c)
+        out[arch] = dict(prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+                         tokens_per_s=res["tokens_per_s"],
+                         cache_bytes=res["cache_bytes"],
+                         sample=res["tokens"][0][:16].tolist())
+        if arch in SERVE_BATCH_ON_CPU:
+            cpu = example.main(["--arch", arch, "--device", "cpu"])
+            check(np.array_equal(cpu["tokens"], res["tokens"]),
+                  f"example_serve_batch {arch}: card tokens "
+                  f"{res['tokens'][0].tolist()} vs CPU "
+                  f"{cpu['tokens'][0].tolist()}")
+            out[arch]["equal_to_cpu"] = True
+    return total, out
+
+
 def main_path_phase(torch, ops, dev, path: str):
     """``ROUNDS`` full-width rounds of ``path`` through ``FLServer``, the
     launch counters reset just before and read just after."""
@@ -2850,6 +3239,42 @@ def main() -> int:
     ex = main["fl_train_example"]
     print(f"main path fl_train_example ({FL_EXAMPLE['steps']} steps, {card}):"
           f" {ex} ({phase_s['fl_train_example']:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    path = "long_decode_gemma2"
+    counts[path], main[path] = long_decode_phase(torch, ops, dev)
+    phase_s[path] = time.perf_counter() - t0
+    ld = main[path]
+    print(f"main path {path}: launches {counts[path]}; {ld}", flush=True)
+    print(f"main path {path} ({ld['arch']}, {ld['layers']} layers, bf16, "
+          f"{ld['a_layers']} A caches of {ld['slots']} slots, chunk "
+          f"{ld['chunk']}, {card}): decode step {ld['step_ms']:.3f} ms "
+          f"(median of {ld['steps']}; the whole-cache softmax "
+          f"{ld['whole_cache_step_ms']:.3f} ms) against a bound of "
+          f"{ld['bound_ms']:.3f} ms; peak {ld['peak_gib']:.3f} GiB; logits "
+          f"vs the whole cache {max(ld['logits_rel_err']):.3e}, one fp32 "
+          f"layer {ld['layer_fp32_rel_err']:.3e} "
+          f"({phase_s[path]:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        quick = example_quickstart_phase(torch, ops, dev, Path(work))
+    phase_s["example_quickstart"] = time.perf_counter() - t0
+    for path, (c, q) in quick.items():
+        counts[path], main[path] = c, q
+        print(f"main path {path} ({card}): launches {c}; {q}", flush=True)
+    print(f"examples/quickstart_torch.py: "
+          f"{phase_s['example_quickstart']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    path = "example_byzantine_defense"
+    counts[path], main[path] = example_byzantine_phase(torch, ops, dev)
+    phase_s[path] = time.perf_counter() - t0
+    print(f"main path {path} ({card}): launches {counts[path]}; "
+          f"{main[path]} ({phase_s[path]:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    path = "example_serve_batch"
+    counts[path], main[path] = example_serve_batch_phase(torch, ops, dev)
+    phase_s[path] = time.perf_counter() - t0
+    print(f"main path {path} ({card}): launches {counts[path]}; "
+          f"{main[path]} ({phase_s[path]:.1f} s)", flush=True)
 
     # launches: the sum over the paths' runs (each read right after its
     # path, counters reset right before); per path beside it. The fused

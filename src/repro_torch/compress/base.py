@@ -1,8 +1,11 @@
-"""Codec protocol and error feedback for gradient compression.
+"""Codec protocol, codec registry and error feedback for gradient
+compression.
 
 A *codec* maps a batch of flat updates (N, D) to what the receiver
-decodes (``roundtrip``) and states the exact wire size
-(``payload_bytes``). Error feedback keeps a per-sender residual r_t:
+decodes (``roundtrip``, the round's path) and states the exact wire size
+(``payload_bytes``); ``encode``/``decode`` give the structured wire form
+(``CompressedUpdate``) for users and tests. Error feedback keeps a
+per-sender residual r_t:
 
     y_t = x_t + r_{t-1};   x̂_t = roundtrip(y_t);   r_t = y_t - x̂_t
 
@@ -15,13 +18,23 @@ codecs ignore it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 Tensor = torch.Tensor
 
 FP32_BYTES = 4
+
+
+@dataclass(frozen=True)
+class CompressedUpdate:
+    """Structured wire form of one batch of updates."""
+    kind: str                       # codec name
+    data: Dict[str, Any]            # codec-specific tensors
+    shape: Tuple[int, int]          # uncompressed (N, D)
+    nbytes_per_row: int             # exact wire bytes for ONE update
 
 
 class Codec:
@@ -40,6 +53,16 @@ class Codec:
     def payload_bytes(self, d: int) -> int:
         """Exact wire bytes for one D-dim update."""
         return FP32_BYTES * d
+
+    def encode(self, x: Tensor, noise: Optional[Tensor] = None
+               ) -> CompressedUpdate:
+        """The wire form of the rows of ``x``."""
+        return CompressedUpdate(self.name, {"values": x}, tuple(x.shape),
+                                self.payload_bytes(x.shape[1]))
+
+    def decode(self, c: CompressedUpdate) -> Tensor:
+        """The rows a receiver rebuilds from ``c``."""
+        return c.data["values"]
 
     def roundtrip(self, x: Tensor, noise: Optional[Tensor] = None) -> Tensor:
         """What the receiver decodes for the rows of ``x``."""
@@ -71,3 +94,27 @@ def ef_step_masked(codec: Codec, x: Tensor, residual: Tensor,
     x_hat, new_res = codec.roundtrip_residual(x + residual, noise)
     keep = row_mask[:, None]
     return torch.where(keep, x_hat, x), torch.where(keep, new_res, residual)
+
+
+_REGISTRY: Dict[str, Any] = {}
+
+
+def register_codec(name: str):
+    """Class decorator: ``make_codec(name)`` builds the class."""
+    def deco(cls):
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def make_codec(name: str, *, ratio: float = 0.1, levels: int = 15) -> Codec:
+    """Codec factory: ``none`` | ``topk`` | ``qsgd`` | a registered name
+    (``topk`` takes ``ratio``, every other codec ``levels``)."""
+    if name in ("none", None, ""):
+        return Codec()
+    if name not in _REGISTRY:
+        known = ["none"] + sorted(_REGISTRY)
+        raise ValueError(f"unknown compressor {name!r}; known: {known}")
+    if name == "topk":
+        return _REGISTRY[name](ratio=ratio)
+    return _REGISTRY[name](levels=levels)

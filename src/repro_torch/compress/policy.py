@@ -21,9 +21,7 @@ from typing import Tuple
 
 import numpy as np
 
-from repro_torch.compress.base import Codec
-from repro_torch.compress.qsgd import QSGDCodec
-from repro_torch.compress.topk import TopKCodec
+from repro_torch.compress.base import Codec, make_codec
 
 POLICIES = ("none", "cross_only", "intra_only", "all")
 
@@ -57,18 +55,6 @@ class LinkPolicy:
         return client, edge
 
 
-def make_codec(name: str, *, ratio: float = 0.1, levels: int = 15) -> Codec:
-    """Codec factory: ``none`` | ``topk`` | ``qsgd``."""
-    if name in ("none", None, ""):
-        return Codec()
-    if name == "topk":
-        return TopKCodec(ratio=ratio)
-    if name == "qsgd":
-        return QSGDCodec(levels=levels)
-    raise ValueError(f"unknown compressor {name!r}; known: "
-                     "['none', 'qsgd', 'topk']")
-
-
 def build_link_policy(compressor: str = "none", *, ratio: float = 0.1,
                       levels: int = 15, link_policy: str = "cross_only"
                       ) -> LinkPolicy:
@@ -85,3 +71,10 @@ def build_link_policy(compressor: str = "none", *, ratio: float = 0.1,
     if link_policy == "intra_only":
         return LinkPolicy(intra=codec, cross=identity)
     return LinkPolicy(intra=codec, cross=codec)
+
+
+def policy_from_flcfg(flcfg) -> LinkPolicy:
+    """The LinkPolicy an ``FLConfig`` describes."""
+    return build_link_policy(flcfg.compressor, ratio=flcfg.compress_ratio,
+                             levels=flcfg.qsgd_levels,
+                             link_policy=flcfg.link_policy)

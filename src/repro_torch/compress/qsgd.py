@@ -8,6 +8,8 @@ bits a coordinate, 6.4× below fp32).
 ``roundtrip_residual`` is one ``stochastic_quantize`` launch in its
 fused mode: quantize, dequantize and the error-feedback residual in one
 pass; the scale is a ``torch.amax`` outside, as in the reference.
+``encode`` launches the same kernel in its q mode for the wire form
+(int32 levels and the per-row scale), and ``decode`` is q·s/L.
 """
 from __future__ import annotations
 
@@ -17,12 +19,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.compress.base import FP32_BYTES, Codec
+from repro_torch.compress.base import (FP32_BYTES, Codec, CompressedUpdate,
+                                      register_codec)
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
 
+@register_codec("qsgd")
 @dataclass(frozen=True)
 class QSGDCodec(Codec):
     """Stochastic quantization to 2·levels+1 states per coordinate."""
@@ -43,6 +47,25 @@ class QSGDCodec(Codec):
 
     def payload_bytes(self, d: int) -> int:
         return FP32_BYTES + math.ceil(d * self.bits_per_coord / 8)
+
+    def encode(self, x: Tensor, noise: Optional[Tensor] = None
+               ) -> CompressedUpdate:
+        """{"q": int32 levels, "scale": each row's max |x|}; ``noise`` is
+        one row of U[0, 1) per sender, as ``roundtrip`` takes it."""
+        if noise is None:
+            raise ValueError("QSGD needs one row of uniform noise per sender")
+        scale = torch.amax(torch.abs(x), dim=1)
+        q = ops.stochastic_quantize(x, scale, noise, levels=self.levels)
+        return CompressedUpdate("qsgd", {"q": q, "scale": scale},
+                                tuple(x.shape),
+                                self.payload_bytes(x.shape[1]))
+
+    def decode(self, c: CompressedUpdate) -> Tensor:
+        """x̂ = q·s/L in fp32 (L a device tensor: the IEEE quotient)."""
+        q, scale = c.data["q"], c.data["scale"]
+        L = torch.full((), float(self.levels), dtype=torch.float32,
+                       device=q.device)
+        return q.to(torch.float32) * scale.reshape(-1, 1) / L
 
     def roundtrip_residual(self, y: Tensor, noise: Optional[Tensor] = None
                            ) -> Tuple[Tensor, Tensor]:

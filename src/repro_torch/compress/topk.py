@@ -6,7 +6,10 @@ bytes against ``4D`` uncompressed.
 
 ``roundtrip`` keeps each row's k largest-magnitude entries (ties at the
 threshold kept) and passes them through fp16, in one ``topk_mask``
-kernel launch with the fp16 round trip fused.
+kernel launch with the fp16 round trip fused. ``encode`` picks exactly k
+indices a row by a stable descending sort of |x|, which keeps
+``lax.top_k``'s order on exact ties (the lower index first; ``torch.topk``
+orders ties otherwise).
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.compress.base import Codec
+from repro_torch.compress.base import (Codec, CompressedUpdate,
+                                      register_codec)
 from repro_torch.kernels import ops
 
 _HEADER_BYTES = 4      # entry count
@@ -23,6 +27,7 @@ _VALUE_BYTES = 2       # fp16 value
 _INDEX_BYTES = 4       # int32 position
 
 
+@register_codec("topk")
 @dataclass(frozen=True)
 class TopKCodec(Codec):
     """Keep the ``ratio`` fraction of largest-magnitude entries per row."""
@@ -40,6 +45,25 @@ class TopKCodec(Codec):
         if self.is_identity:
             return super().payload_bytes(d)
         return _HEADER_BYTES + self.k_for(d) * (_VALUE_BYTES + _INDEX_BYTES)
+
+    def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None
+               ) -> CompressedUpdate:
+        """k fp16 values and their int32 indices a row, largest |x|
+        first."""
+        k = self.k_for(x.shape[1])
+        idx = torch.sort(torch.abs(x), dim=1, descending=True,
+                         stable=True).indices[:, :k]
+        vals = torch.take_along_dim(x, idx, dim=1).to(torch.float16)
+        return CompressedUpdate(
+            "topk", {"values": vals, "indices": idx.to(torch.int32)},
+            tuple(x.shape), self.payload_bytes(x.shape[1]))
+
+    def decode(self, c: CompressedUpdate) -> torch.Tensor:
+        """The values scattered into an fp32 (N, D) of zeros."""
+        vals = c.data["values"]
+        out = torch.zeros(c.shape, dtype=torch.float32, device=vals.device)
+        return out.scatter_(1, c.data["indices"].long(),
+                            vals.to(torch.float32))
 
     def roundtrip(self, x: torch.Tensor,
                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -201,17 +201,24 @@ def register_arch(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
+def _register_all() -> None:
+    """Import every arch module (each registers its config)."""
+    from repro_torch.configs import ALL_ARCH_MODULES  # noqa: F401
+
+
 def get_arch(name: str) -> ModelConfig:
     """The registered config ``name``; ``KeyError`` for an unknown one."""
     if name not in _ARCHES:
-        # import side-effect registration
-        from repro_torch.configs import (  # noqa: F401
-            gemma2_2b, granite_3_8b, h2o_danube_3_4b,
-            llama4_maverick_400b_a17b, mistral_large_123b, mixtral_8x7b,
-            paligemma_3b, recurrentgemma_2b, rwkv6_1_6b, whisper_small)
+        _register_all()
     if name not in _ARCHES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHES)}")
     return _ARCHES[name]
+
+
+def list_arches() -> Tuple[str, ...]:
+    """Every registered arch's name, sorted."""
+    _register_all()
+    return tuple(sorted(_ARCHES))
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 256, layers: int = 2

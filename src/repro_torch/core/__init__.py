@@ -14,7 +14,9 @@ multi-feature trust gate  -> repro_torch.core.features
 from repro_torch.core import features
 from repro_torch.core.aggregation import (AggregationResult,
                                           cost_trustfl_aggregate)
-from repro_torch.core.attacks import UPDATE_ATTACKS, apply_update_attack
+from repro_torch.core.attacks import (ATTACKS, UPDATE_ATTACKS,
+                                      apply_update_attack, flip_labels,
+                                      register_update_attack)
 from repro_torch.core.cost import (CostModel, hierarchical_unit_costs_torch,
                                    round_bytes_torch)
 from repro_torch.core.fl_types import CloudTopology, RoundMetrics
@@ -40,6 +42,7 @@ __all__ = ["AggregationResult", "cost_trustfl_aggregate", "CostModel",
            "exact_shapley", "gradient_contribution", "monte_carlo_shapley",
            "cloud_trust", "normalize_updates", "trust_scores",
            "trusted_aggregate", "tree_cos", "tree_dot", "tree_norm",
-           "tree_scale", "UPDATE_ATTACKS", "apply_update_attack", "features",
+           "tree_scale", "ATTACKS", "UPDATE_ATTACKS", "apply_update_attack",
+           "flip_labels", "register_update_attack", "features",
            "AGGREGATORS", "fedavg", "krum", "trimmed_mean",
            "coordinate_median", "fltrust"]

@@ -4,10 +4,11 @@ port of ``repro/core/attacks.py``).
 
 Static (paper Table I): ``gaussian`` (additive N(0, σ²) noise),
 ``sign_flip`` (g ← −scale·g), ``scaling`` (g ← scale·g); ``label_flip``
-poisons data (``federated.engine.poison_labels``) and is the identity
-here. Adaptive: ``alie`` (mean − z·std of the honest rows), ``alie_norm``
-(the same point rescaled to the honest median norm, so the Eq. 7 median
-damp reads it as typical), ``ipm`` (−scale·mean of the honest rows),
+poisons data (``federated.engine.poison_labels``; :func:`flip_labels`
+for users) and is the identity here. Adaptive: ``alie`` (mean − z·std of
+the honest rows), ``alie_norm`` (the same point rescaled to the honest
+median norm, so the Eq. 7 median damp reads it as typical), ``ipm``
+(−scale·mean of the honest rows),
 ``min_max`` (largest step along −mean that stays inside the honest
 pairwise-distance envelope, 20-step bisection) and ``collusion`` (every
 colluder sends −scale·their mean).
@@ -15,7 +16,9 @@ colluder sends −scale·their mean).
 ``valid`` (bool (m,), optional) excludes rows that never delivered from
 the honest statistics. ``gaussian`` takes its (m, D) standard normals
 from the caller (``noise``): the engine draws them from its own stream
-or replays the reference's ``normal(round_key, (m, D))``.
+or replays the reference's ``normal(round_key, (m, D))``. Users add an
+attack with :func:`register_update_attack`; ``FLConfig.attack`` then
+names it and the round loops run it through :func:`apply_update_attack`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,16 @@ import torch
 Tensor = torch.Tensor
 
 EPS = 1e-12
+
+
+def flip_labels(labels: Tensor, n_classes: int, mask: Tensor,
+                generator: torch.Generator) -> Tensor:
+    """Label flipping: every label where ``mask`` is set moves by an
+    offset drawn uniformly from [1, n_classes) from ``generator`` (on
+    ``labels``' device), modulo ``n_classes``; the others stay."""
+    offset = torch.randint(1, n_classes, labels.shape, generator=generator,
+                           device=labels.device, dtype=labels.dtype)
+    return torch.where(mask, (labels + offset) % n_classes, labels)
 
 
 def _honest(malicious: Tensor, valid: Optional[Tensor]) -> Tensor:
@@ -139,30 +152,48 @@ def collusion_attack(updates: Tensor, malicious: Tensor, scale: float = 1.0,
 
 
 # -- registry -----------------------------------------------------------------
-# fn(updates, malicious, noise, *, sigma, scale, z, valid); None marks the
-# names handled at the data level (label_flip) or not at all (none).
+# fn(updates, malicious, noise, *, sigma, scale, z[, valid]); None marks
+# the names handled at the data level (label_flip) or not at all (none).
+# ``noise`` is the (m, D) standard normals for the NOISY_ATTACKS and may
+# be None for any other; ``valid`` is passed only when some row did not
+# deliver, so an adapter without it keeps working under full delivery.
 AttackFn = Callable[..., Tensor]
 
-UPDATE_ATTACKS: Dict[str, Optional[AttackFn]] = {
-    "none": None,
-    "label_flip": None,
-    "gaussian": lambda u, m, n, *, sigma, scale, z, valid:
-        gaussian_attack(u, m, n, sigma),
-    "sign_flip": lambda u, m, n, *, sigma, scale, z, valid:
-        sign_flip_attack(u, m, scale),
-    "scaling": lambda u, m, n, *, sigma, scale, z, valid:
-        scaling_attack(u, m, scale),
-    "alie": lambda u, m, n, *, sigma, scale, z, valid:
-        alie_attack(u, m, z, valid),
-    "alie_norm": lambda u, m, n, *, sigma, scale, z, valid:
-        alie_norm_attack(u, m, z, valid),
-    "ipm": lambda u, m, n, *, sigma, scale, z, valid:
-        ipm_attack(u, m, scale, valid),
-    "min_max": lambda u, m, n, *, sigma, scale, z, valid:
-        min_max_attack(u, m, valid=valid),
-    "collusion": lambda u, m, n, *, sigma, scale, z, valid:
-        collusion_attack(u, m, scale, valid),
-}
+UPDATE_ATTACKS: Dict[str, Optional[AttackFn]] = {}
+
+
+def register_update_attack(name: str, fn: Optional[AttackFn]) -> None:
+    """Make ``name`` an attack ``FLConfig.attack`` can name (``None``:
+    the identity on updates)."""
+    UPDATE_ATTACKS[name] = fn
+
+
+register_update_attack("none", None)
+register_update_attack("label_flip", None)   # data level, see flip_labels
+register_update_attack(
+    "gaussian", lambda u, m, n, *, sigma, scale, z, valid=None:
+        gaussian_attack(u, m, n, sigma))
+register_update_attack(
+    "sign_flip", lambda u, m, n, *, sigma, scale, z, valid=None:
+        sign_flip_attack(u, m, scale))
+register_update_attack(
+    "scaling", lambda u, m, n, *, sigma, scale, z, valid=None:
+        scaling_attack(u, m, scale))
+register_update_attack(
+    "alie", lambda u, m, n, *, sigma, scale, z, valid=None:
+        alie_attack(u, m, z, valid))
+register_update_attack(
+    "alie_norm", lambda u, m, n, *, sigma, scale, z, valid=None:
+        alie_norm_attack(u, m, z, valid))
+register_update_attack(
+    "ipm", lambda u, m, n, *, sigma, scale, z, valid=None:
+        ipm_attack(u, m, scale, valid))
+register_update_attack(
+    "min_max", lambda u, m, n, *, sigma, scale, z, valid=None:
+        min_max_attack(u, m, valid=valid))
+register_update_attack(
+    "collusion", lambda u, m, n, *, sigma, scale, z, valid=None:
+        collusion_attack(u, m, scale, valid))
 
 # attacks that read the caller's (m, D) standard normals
 NOISY_ATTACKS = ("gaussian",)
@@ -183,5 +214,11 @@ def apply_update_attack(name: str, updates: Tensor, malicious: Tensor,
         return updates
     if name in NOISY_ATTACKS and noise is None:
         raise ValueError(f"attack {name!r} needs its (m, D) normals")
+    if valid is None:
+        return fn(updates, malicious, noise, sigma=sigma, scale=scale, z=z)
     return fn(updates, malicious, noise, sigma=sigma, scale=scale, z=z,
               valid=valid)
+
+
+# the built-in attacks' names, in the order they were registered
+ATTACKS = tuple(UPDATE_ATTACKS)

@@ -11,7 +11,7 @@ masks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +35,12 @@ class CostModel:
     c_intra: float = 0.01     # $/GB within a cloud
     c_cross: float = 0.09     # $/GB cross-cloud egress
     bytes_per_param: int = 4
+
+    def client_unit_costs(self, topo: CloudTopology) -> np.ndarray:
+        """c_i (Eq. 2): the $/GB for client i to reach the global
+        aggregator's cloud on the flat upload path."""
+        same = topo.cloud_of == topo.aggregator_cloud
+        return np.where(same, self.c_intra, self.c_cross)
 
     def _edge_prices(self, topo: CloudTopology) -> np.ndarray:
         """(K,) $/GB of each cloud's edge→global uplink."""
@@ -78,6 +84,17 @@ class CostModel:
         intra += float(ep[topo.aggregator_cloud])
         return intra, cross
 
+    def bytes_per_round(self, topo: CloudTopology, selected: np.ndarray,
+                        d_params: int, *, hierarchical: bool = True,
+                        client_payload: PayloadLike = None,
+                        edge_payload: PayloadLike = None
+                        ) -> Dict[str, float]:
+        """One round's traffic in bytes: {"intra", "cross", "total"}."""
+        intra, cross = self.round_bytes(
+            topo, selected, d_params, hierarchical=hierarchical,
+            client_payload=client_payload, edge_payload=edge_payload)
+        return {"intra": intra, "cross": cross, "total": intra + cross}
+
     def round_cost(self, topo: CloudTopology, selected: np.ndarray,
                    d_params: int, hierarchical: bool = True, *,
                    client_payload: PayloadLike = None,
@@ -94,6 +111,12 @@ class CostModel:
         gb = d_params * self.bytes_per_param / _GB
         return float(gb * self.c_intra * topo.n_clients +
                      gb * self.c_cross * topo.n_clouds)
+
+    def collective_egress_dollars(self, cross_pod_bytes: int) -> float:
+        """$ of measured cross-pod collective traffic at the egress rate
+        (the dry-run records' cross-pod bytes, priced as the paper's
+        cross-cloud fee)."""
+        return cross_pod_bytes / _GB * self.c_cross
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,10 @@ class CloudTopology:
     def n_clients(self) -> int:
         return int(self.cloud_of.shape[0])
 
+    def clients_in(self, k: int) -> np.ndarray:
+        """The indices of cloud ``k``'s clients, ascending."""
+        return np.nonzero(self.cloud_of == k)[0]
+
     @staticmethod
     def even(n_clouds: int, clients_per_cloud: int, aggregator_cloud: int = 0
              ) -> "CloudTopology":

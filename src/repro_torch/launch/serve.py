@@ -9,7 +9,7 @@ VLM that is ``prompt_len - vis_tokens`` text tokens (the prefill, as the
 reference's, ignores the patches) and decoding starts at index
 ``prompt_len``, as in the reference's launcher.
 
-  python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke \\
+  python -m repro_torch.launch.serve --arch gemma2-2b --smoke \\
       --device cpu --requests 8 --gen 16
 """
 from __future__ import annotations
@@ -55,7 +55,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(arch: str = "recurrentgemma-2b", *, smoke: bool = False,
+def serve(arch: str = "gemma2-2b", *, smoke: bool = False,
           batch: int = 4, requests: int = 8, prompt_len: int = 16,
           gen: int = 16, device: DeviceLike = "cuda",
           dtype="float32", seed: int = 0,
@@ -133,7 +133,7 @@ def serve(arch: str = "recurrentgemma-2b", *, smoke: bool = False,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="gemma2-2b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)

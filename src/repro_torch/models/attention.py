@@ -16,8 +16,9 @@ from repro_torch.models.common import apply_rope, dense_init, softcap
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
-# one-token scores over caches longer than this take the reference's
-# chunked (flash-style) branch, which is not ported
+# one-token scores over caches longer than this run chunk by chunk
+# (flash-style), as the reference's; read at call time, so tests can
+# patch it
 _DECODE_CHUNK = 1 << 20
 
 
@@ -229,12 +230,44 @@ def attn_decode(params, x: Tensor, cache: Dict[str, Tensor], index: int, *,
 def _decode_attn(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
                  attn_cap: float) -> Tensor:
     """One-token attention over the cache. q: (B,1,KV,G,hd); k/v:
-    (B,S,KV,hd); valid: (S,)."""
-    if k.shape[1] > _DECODE_CHUNK:
-        raise NotImplementedError(
-            f"decode over a cache of {k.shape[1]} > 2^20 slots takes the "
-            "reference's chunked branch, which is not ported yet")
-    return _sdpa(q, k, v, valid[None, None, None, None, :], attn_cap)
+    (B,S,KV,hd); valid: (S,). Returns (B,1,KV,G,hd).
+
+    A cache of more than ``_DECODE_CHUNK`` slots is scanned in chunks of
+    that many with a running (max, denominator, out) triple in fp32, so
+    the live scores are (B, KV, G, 1, chunk) instead of (..., S)
+    (``repro/models/attention.py:207-256``). The chunks are views of the
+    cache and the last one is ragged: the reference pads k and v to whole
+    chunks, but a padded slot is invalid and adds exactly 0 once any slot
+    is valid (``attn_decode``'s own slot always is), so the copy is left
+    out. A wholly invalid chunk before the first valid one adds exp(0)
+    terms that the next valid chunk's correction exp(-1e30 - m) = 0
+    wipes, as in the reference."""
+    s = k.shape[1]
+    c = _DECODE_CHUNK
+    if s <= c:
+        return _sdpa(q, k, v, valid[None, None, None, None, :], attn_cap)
+    b, _, kvh, hd = k.shape
+    g = q.shape[3]
+    hd_scale = 1.0 / math.sqrt(hd)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((b, kvh, g, 1), NEG_INF, **f32)
+    l = torch.zeros((b, kvh, g, 1), **f32)
+    o = torch.zeros((b, kvh, g, 1, hd), **f32)
+    for start in range(0, s, c):
+        ki, vi = k[:, start:start + c], v[:, start:start + c]
+        sc = torch.einsum("btkgh,bskh->bkgts", q, ki) * hd_scale
+        sc = softcap(sc.to(torch.float32), attn_cap)
+        sc = torch.where(valid[start:start + c], sc, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bkgts,bskh->bkgth", p.to(q.dtype), vi).to(torch.float32)
+        m = m_new
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    # (B,KV,G,1,hd) -> (B,1,KV,G,hd)
+    return torch.movedim(out, 3, 1).to(q.dtype)
 
 
 def init_cross_cache(params, memory: Tensor, cfg: ModelConfig

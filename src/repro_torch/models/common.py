@@ -99,6 +99,14 @@ def gelu(x: Tensor) -> Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
+def act_fn(name: str) -> Callable[[Tensor], Tensor]:
+    """The activation ``name``: "gelu" (tanh form), "silu", "relu" or
+    "relu2" (relu squared)."""
+    relu = torch.nn.functional.relu
+    return {"gelu": gelu, "silu": torch.nn.functional.silu, "relu": relu,
+            "relu2": lambda x: torch.square(relu(x))}[name]
+
+
 def remat(fn: Callable, *args):
     """``fn(*args)``, rematerialized in the backward when autograd
     records (the reference's ``jax.checkpoint``): only ``args`` are

@@ -7,7 +7,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, gelu
+from repro_torch.models.common import act_fn, dense_init, gelu
 
 Tensor = torch.Tensor
 
@@ -25,7 +25,7 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
 
 def mlp_forward(params, x: Tensor, cfg: ModelConfig) -> Tensor:
     if cfg.ffn_act in ("swiglu", "geglu"):
-        act = torch.nn.functional.silu if cfg.ffn_act == "swiglu" else gelu
+        act = act_fn("silu" if cfg.ffn_act == "swiglu" else "gelu")
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = gelu(x @ params["w_up"])

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, gelu
+from repro_torch.models.common import act_fn, dense_init, gelu
 
 Tensor = torch.Tensor
 
@@ -160,7 +160,7 @@ def _route_global(combine: Tensor, probs: Tensor, cfg: ModelConfig,
 
 def _expert_ffn(params, e: int, x: Tensor, cfg: ModelConfig) -> Tensor:
     if "w_gate" in params:
-        act = torch.nn.functional.silu if cfg.ffn_act == "swiglu" else gelu
+        act = act_fn("silu" if cfg.ffn_act == "swiglu" else "gelu")
         h = act(x @ params["w_gate"][e]) * (x @ params["w_up"][e])
     else:
         h = gelu(x @ params["w_up"][e])

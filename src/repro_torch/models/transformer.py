@@ -29,6 +29,11 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
+def layer_signature(cfg: ModelConfig, layer_idx: int) -> Tuple[str, bool]:
+    """(block type, whether the FFN is MoE) of layer ``layer_idx``."""
+    return cfg.layer_types()[layer_idx], cfg.is_moe_layer(layer_idx)
+
+
 def _sinusoidal(cfg: ModelConfig) -> bool:
     """Whether the model adds fixed sinusoidal positions to its input
     (no RoPE, and not an attention-free SSM)."""
@@ -47,9 +52,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
     norm."""
     d, v = cfg.d_model, cfg.vocab_size
     cross = cfg.is_encdec
-    layers = [blocks.init_layer(gen, cfg, lt, cfg.is_moe_layer(i), dtype,
+    layers = [blocks.init_layer(gen, cfg, *layer_signature(cfg, i), dtype,
                                 cross=cross)
-              for i, lt in enumerate(cfg.layer_types())]
+              for i in range(cfg.num_layers)]
     params: Params = {
         "embed": dense_init(gen, (v, d), scale=0.02, dtype=dtype),
         "layers": layers,
@@ -102,8 +107,8 @@ def _run_layers(params, cfg: ModelConfig, x: Tensor, *,
     layer boundaries are saved."""
     caches = [] if max_len is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (lp, lt) in enumerate(zip(params["layers"], cfg.layer_types())):
-        moe = cfg.is_moe_layer(i)
+    for i, lp in enumerate(params["layers"]):
+        lt, moe = layer_signature(cfg, i)
         if max_len is None:
             fwd = partial(blocks.layer_forward, cfg=cfg, layer_type=lt,
                           is_moe=moe, prefix_len=prefix_len, memory=memory)
@@ -228,10 +233,10 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token: Tensor,
         pos = torch.full((1,), index, device=x.device)
         x = x + sinusoid_at(pos, cfg.d_model).to(x.dtype)
     new_layers = []
-    for i, (lp, lc, lt) in enumerate(zip(params["layers"], cache["layers"],
-                                         cfg.layer_types())):
+    for i, (lp, lc) in enumerate(zip(params["layers"], cache["layers"])):
+        lt, moe = layer_signature(cfg, i)
         x, nc = blocks.layer_decode(lp, x, lc, index, cfg=cfg, layer_type=lt,
-                                    is_moe=cfg.is_moe_layer(i))
+                                    is_moe=moe)
         new_layers.append(nc)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = softcap(logits_fn(params, cfg, h)[:, 0], cfg.logit_softcap)

@@ -170,18 +170,21 @@ def test_full_width_layout_and_true_parameter_count():
 
 
 def test_unported_arch_and_layers_raise():
-    """What the port still refuses, each naming the missing feature:
-    one-token attention over a cache of more than 2^20 slots (the
-    reference's chunked branch), the serve steps over a mesh and
-    training one model over a mesh. Every registered arch now builds."""
+    """What the port still refuses, each naming the missing feature: the
+    serve steps over a mesh and training one model over a mesh. Every
+    registered arch now builds, and one-token attention over a cache of
+    more than 2^20 slots runs (chunk by chunk) and equals the whole-cache
+    softmax."""
     with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
         get_arch("no-such-arch")
-    q = torch.zeros(1, 1, 1, 1, 4)
-    big = torch.zeros(1, 1, 1, 4).expand(1, (1 << 20) + 1, 1, 4)
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 1, 1, 1, 4, generator=gen)
+    big = torch.randn(1, 1, 1, 4, generator=gen).expand(
+        1, (1 << 20) + 1, 1, 4)
     valid = torch.ones((1 << 20) + 1, dtype=torch.bool)
-    with pytest.raises(NotImplementedError,
-                       match="2\\^20 slots .* not ported yet"):
-        attention._decode_attn(q, big, big, valid, 0.0)
+    got = attention._decode_attn(q, big, big, valid, 0.0)
+    want = attention._sdpa(q, big, big, valid[None, None, None, None], 0.0)
+    assert torch.allclose(got, want, rtol=1e-5, atol=0.0)
     model = Model(CFG)
     for make in (make_serve_step, make_prefill_step):
         with pytest.raises(NotImplementedError,
