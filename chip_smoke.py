@@ -86,7 +86,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fused step (its MoE layers dropping tokens), rwkv6's, whisper's (with
    frames) and paligemma's (with patches) two-phase steps and
    paligemma's fused step (which cuts the text offset), the MoE routes
-   equal, no kernel launched;
+   equal, no kernel launched; then the (1, 1) mesh of
+   ``launch.mesh.make_debug_mesh(1)`` (``mesh_phase``): the two-phase
+   and fused steps at the recurrentgemma and dense test configurations
+   over the mesh (parameters and moments stored by the reference's
+   specs, AdamW after the clip) equal the same steps over
+   ``ClientMesh(1)`` bit for bit, launches too, and ``make_plain_step``
+   with the mesh equals it with ``mesh=None``;
 5. main paths, with every launch counter reset just before the path and
    read just after it:
    * HEADLINE and DEFENSE, each five rounds of ``FLServer.run_round``
@@ -201,6 +207,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      kernel never; less than 2 GiB allocated before each, the weights
      released after it; step ms, client tokens/s, peak memory, gradient
      evaluations a step;
+   * FL_TRAIN_MIXTRAL_MESH: FL_TRAIN_MIXTRAL over the (1, 1) mesh, its
+     parameters and moments stored by ``param_specs`` /
+     ``opt_state_specs`` as DTensors; the mesh's one client holds the 4
+     x 2048 tokens; every kernel never; step ms, peak and stored GiB;
    * FL_TRAIN_EXAMPLE: ``examples/federated_llm_train_torch.py`` at its
      defaults (60 steps); no kernel; the loss falls and the attacker's
      reputation ends below the honest mean;
@@ -256,6 +266,15 @@ launches (``launches_bwd``, ``launches_bwd_by_path``) and its numbers
 under ``bwd``) and, last, the ``{"ok": true, "device": ...}``
 line. Exits non-zero without a CUDA device, and when
 ``src/repro_torch`` is not beside this script.
+
+    torchrun --nproc-per-node 4 chip_smoke.py --mesh   # four cards
+
+runs the four-card checks alone (``mesh_main``): the steps over the
+(4, 1) and (2, 2) meshes against the whole-moment steps (bit for bit)
+and a one-rank run (1e-5), the shard paths at world 4 and 3 against
+``Engine.step``, and mixtral-8x7b at full width over the (4, 1) mesh
+(fsdp, ZeRO-1) at 2 and 3 layers and the deepest depth that fits;
+rank 0 writes ``chiprun_out/chip_smoke_mesh.json``.
 
     python3 chip_smoke.py --profile  # build, then trace steady work
 
@@ -461,7 +480,22 @@ FL_TRAIN_PATHS = {
                              strategy="two_phase"),
     "fl_train_paligemma": dict(FL_TRAIN, arch="paligemma-3b",
                                seq=256 + 1024, strategy="two_phase"),
+    # fl_train_mixtral over the (1, 1) mesh of ``make_debug_mesh(1)``:
+    # parameters and moments stored by the reference's specs (whole on
+    # one rank); its data axis holds one client, given the 4 x 2048
+    # tokens of fl_train_mixtral's four
+    "fl_train_mixtral_mesh": dict(FL_TRAIN, arch="mixtral-8x7b", layers=2,
+                                  strategy="fused", mesh=(1, 1), clients=1,
+                                  clouds=1, per=4, selected=1),
 }
+# the four-card mode's federated paths (``--mesh`` under torchrun, one
+# card a rank): mixtral-8x7b at full width, fused, over the (4, 1) mesh,
+# a client a card in 2 clouds, parameters stored over data (fsdp) and
+# AdamW's moments by ZeRO-1; at 2 layers, 3, then the deepest depth the
+# two runs' peaks say fits beside the memory outside PyTorch's allocator
+# (MESH4_HEADROOM_GIB left free)
+MESH4_TRAIN = dict(FL_TRAIN_PATHS["fl_train_mixtral"], mesh=(4, 1))
+MESH4_HEADROOM_GIB = 4.0
 # phase 4's federated steps of those families, at their test
 # configurations (``_family_test_model``), in their configs' strategies;
 # paligemma in both, so the fused step cuts its text offset on the card
@@ -1192,40 +1226,52 @@ def agreement_phase(torch, dev, path: str):
     return worst
 
 
-def shard_engine_phase(torch, dev, path: str):
-    """The sharded engine (``path``'s, world size 1 on NCCL) against the
-    round engine's ``Engine.step`` on the card at full width, ``ROUNDS``
-    rounds, each from the round engine's state of the round before and on
-    one set of own-mode draws (the wire noise materialized), with cuDNN
-    on its deterministic algorithms as ``resolve_device`` sets them:
-    masks and float64 bytes and $ exact; reputation, params and
-    separability within 1e-4 relative.
-    Returns the worst drifts (the residuals' too, unchecked)."""
+def shard_engine_phase(torch, dev, path: str, fl_over=None, group=None):
+    """The sharded engine (``path``'s, over ``group``: default the default
+    group, a one-rank NCCL group started and ended here when none is
+    initialized) against the round engine's ``Engine.step`` on the card
+    at full width, ``ROUNDS`` rounds, each from the round engine's state
+    of the round before and on one set of own-mode draws (the wire noise
+    materialized), with cuDNN on its deterministic algorithms as
+    ``resolve_device`` sets them: masks and float64 bytes and $ exact;
+    reputation, params and separability within 1e-4 relative.
+    ``fl_over`` replaces ``FLConfig`` fields of the path's knobs.
+    Returns the worst drifts (the residuals' too, unchecked) and this
+    rank's kernel launches in the shard's steps."""
     import numpy as np
     from repro_torch.configs.base import FLConfig
     from repro_torch.federated import engine as engine_mod
     from repro_torch.federated import sharded
     from repro_torch.federated.simulation import make_data, make_topology
+    from repro_torch.kernels import ops
 
     knobs, _, engine, _ = PATHS[path]
     check(engine == "shard", f"{path} is not a shard path")
-    fl = FLConfig(**knobs)
+    fl = FLConfig(**dict(knobs, **(fl_over or {})))
     topo = make_topology(fl)
     data = make_data(fl)
-    sharded.ensure_group(dev)
+    started = sharded.ensure_group(dev)
     eng = engine_mod.Engine(engine_mod.static_from(
         fl, topo, fl.aggregator, input_shape=tuple(data.client_x.shape[2:]),
         n_classes=data.n_classes), dev)
-    shard = sharded.engine_for(fl, topo, data, fl.aggregator, device=dev)
+    shard = sharded.engine_for(fl, topo, data, fl.aggregator, device=dev,
+                               group=group)
     full = engine_mod.make_client_data(fl, topo, data, 0, device=dev)
     cd = shard.stage_data(full)
     worst = {k: 0.0 for k in ("rep", "params", "feat_sep", "res_client",
                               "res_edge")}
+    launches = {name: 0 for name in ops.launch_counts()}
     state = eng.init_state(0)
     for t in range(ROUNDS):
         draws = eng.draws(0, t, full, full_noise=True)
         # the shard first: Engine.step updates res_client in place
-        b, ob = shard.step(state, cd, t, draws)
+        ops.reset_launch_counts()
+        # a rank's state holds the client wire's residuals of its rows
+        mine = state._replace(res_client=state.res_client[shard.rows].clone()
+                              if state.res_client.numel() else
+                              state.res_client)
+        b, ob = shard.step(mine, cd, t, draws)
+        launches = _add_counts(launches, ops.launch_counts())
         state, oa = eng.step(state, full, t, draws)
         da, db = oa.delivered.cpu().numpy(), ob.delivered.cpu().numpy()
         check(np.array_equal(da, db), f"{path} round {t}: masks differ "
@@ -1239,15 +1285,17 @@ def shard_engine_phase(torch, dev, path: str):
                 ("params", flat_params(torch, b.params),
                  flat_params(torch, state.params)),
                 ("feat_sep", b.feat_sep, state.feat_sep),
-                ("res_client", b.res_client, state.res_client),
+                ("res_client", b.res_client, state.res_client[shard.rows]
+                 if state.res_client.numel() else state.res_client),
                 ("res_edge", b.res_edge, state.res_edge)):
             if y.numel():
                 worst[name] = max(worst[name], rel_err(torch, x, y))
-    end_group()
+    if started:
+        end_group()
     checked = {k: worst[k] for k in ("rep", "params", "feat_sep")}
     check(max(checked.values()) <= 1e-4, f"{path}: shard vs round engine "
           f"drift {checked} > 1e-4")
-    return worst
+    return dict(worst, launches=launches)
 
 
 def host_agreement_phase(torch, dev, path: str):
@@ -1966,9 +2014,10 @@ def fl_train_agreement_phase(torch, ops, dev, seq: int = 96,
     return worst
 
 
-def fl_train_path_phase(torch, ops, dev, path: str):
-    """``FL_TRAIN_PATHS[path]`` through ``train.make_fl_train_step`` in
-    its strategy: the arch at its full published widths (fp32 weights,
+def fl_train_path_phase(torch, ops, dev, path: str, spec=None, mesh=None):
+    """``FL_TRAIN_PATHS[path]`` (or ``spec``) through
+    ``train.make_fl_train_step`` in its strategy: the arch at its full
+    published widths (fp32 weights,
     every layer rematerialized; the depth cut where ``layers`` says), AdamW
     as ``TRAIN`` uses it, 4 clients of 1 x ``seq`` positions in 2 clouds,
     3 selected, one reference row a cloud, all on one NCCL rank the step
@@ -1984,17 +2033,28 @@ def fl_train_path_phase(torch, ops, dev, path: str):
     checks that two gradients of one client's batch are bit-identical at
     full width (pass B recomputes pass A's); an MoE path counts the
     routed (token, expert) pairs its layers drop, over the global
-    batch."""
+    batch. A path with a ``mesh`` shape runs over that live mesh of the
+    default group's ranks (``mesh`` when given, which must have that
+    shape; one client a data index; a (1, 1) mesh starts and ends a
+    one-rank group when none is initialized), its parameters
+    stored by ``param_specs`` and AdamW's moments by ``opt_state_specs``,
+    each made in place; ``stored_gib`` is what this rank stores of
+    them."""
     import math
     from dataclasses import replace
 
+    import torch.distributed as dist
     from repro_torch.configs.base import FLConfig, get_arch
     from repro_torch.data import make_token_stream, token_batches
+    from repro_torch.launch.mesh import live_mesh
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw, clip_by_global_norm, cosine_schedule
+    from repro_torch.sharding import (MeshShape, full_tree, opt_state_specs,
+                                      param_specs, shard_tree)
     from repro_torch.train import ClientMesh, make_fl_train_step
+    from repro_torch.tree import tree_leaves
 
-    ft = FL_TRAIN_PATHS[path]
+    ft = spec or FL_TRAIN_PATHS[path]
     strategy = ft["strategy"]
     check_memory_free(torch, path)
     cfg = get_arch(ft["arch"])
@@ -2046,9 +2106,22 @@ def fl_train_path_phase(torch, ops, dev, path: str):
 
     def clipped_update(grads, state, p):
         return update(clip_by_global_norm(grads, ft["clip"])[0], state, p)
-    opt_state = init(params)
+    started = False
+    if ft.get("mesh") is None:
+        mesh = ClientMesh(n)
+        opt_state = init(params)
+    else:
+        if mesh is None:
+            started = not dist.is_initialized()
+            mesh = live_mesh(MeshShape(("data", "model"), ft["mesh"]), dev)
+        check(tuple(mesh.shape) == tuple(ft["mesh"]),
+              f"{path}: mesh {tuple(mesh.shape)}, expected {ft['mesh']}")
+        shapes = model.param_shapes()
+        params = shard_tree(params, param_specs(shapes, cfg, mesh), mesh)
+        moments = opt_state_specs(init(shapes), shapes, cfg, mesh).mu
+        opt_state = init(shard_tree(params, moments, mesh))
     fl = FLConfig(n_clouds=k, clients_per_round=ft["selected"])
-    step, topo = make_fl_train_step(model, ClientMesh(n), fl,
+    step, topo = make_fl_train_step(model, mesh, fl,
                                     (init, clipped_update),
                                     strategy=strategy,
                                     loss_chunk=ft["loss_chunk"])
@@ -2091,12 +2164,19 @@ def fl_train_path_phase(torch, ops, dev, path: str):
                 step_s.append(dt)
     check(int(opt_state.step) == ft["warmup"] + ft["steps"],
           f"{path}: optimizer step {int(opt_state.step)}")
-    for key_, v in (("embed", params["embed"]),
-                    ("final_norm", params["final_norm"])):
+    ends = full_tree({key_: params[key_] for key_ in ("embed", "final_norm")})
+    for key_, v in ends.items():
         check(bool(torch.isfinite(v).all()), f"{path}: {key_} not finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+    stored = sum(local(x).numel() * local(x).element_size() for x in
+                 tree_leaves([params, opt_state.mu, opt_state.nu])) / 2 ** 30
     metrics = {key_: v.cpu().tolist() for key_, v in met.items()}
-    del params, opt_state, step
+    del params, opt_state, step, ends
+    if started:
+        end_group()
     torch.cuda.empty_cache()
     tokens = n * per * seq
     return counts, dict(
@@ -2104,6 +2184,7 @@ def fl_train_path_phase(torch, ops, dev, path: str):
         setup_s=setup_s, losses=losses, step_s=step_s,
         step_ms=1e3 * statistics.median(step_s),
         tokens_per_s=tokens / statistics.median(step_s), peak_gib=peak,
+        stored_gib=stored, mesh=ft.get("mesh"),
         launches_per_step=per_step, grad_evals_per_step=evals,
         moe_dropped_per_step=dropped if cfg.n_experts else None,
         grads_bit_stable=stable, rep=rep.cpu().tolist(), metrics=metrics)
@@ -3054,6 +3135,306 @@ def profile_serve(torch, dev, out, path: str = "serve"):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the train steps over a device mesh
+
+def _adamw_clipped(torch):
+    """AdamW (weight decay 0.1) after ``clip_by_global_norm(0.05)``: the
+    clip bites on these steps, so it reads the whole gradient."""
+    from repro_torch.optim import adamw, clip_by_global_norm
+
+    init, update = adamw(1e-2, weight_decay=0.1)
+
+    def clipped(grads, state, params):
+        return update(clip_by_global_norm(grads, 0.05)[0], state, params)
+    return init, clipped
+
+
+def _mesh_step_run(torch, ops, model, mesh, fl, strategy, p0, batch, ref,
+                   chunk, steps: int = 2, opt=None):
+    """``steps`` chained federated steps over ``mesh`` (a ``DeviceMesh``
+    or a ``ClientMesh``) from a copy of ``p0``, with ``opt`` (default
+    AdamW after the clip): (metrics, reputation, the parameters and
+    moments gathered whole, the launches)."""
+    from repro_torch.sharding import full_tree
+    from repro_torch.train import make_fl_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    opt = opt or _adamw_clipped(torch)
+    params = tree_map(lambda x: x.clone(), p0)
+    state = opt[0](params)
+    step, topo = make_fl_train_step(model, mesh, fl, opt, strategy=strategy,
+                                    loss_chunk=chunk)
+    rep = torch.full((topo.n_clients,), 1.0 / topo.n_clients,
+                     device=p0["embed"].device)
+    counts = {}
+    with step:
+        for t in range(steps):
+            key = (t + 1,) if strategy == "fused" else ()
+            ops.reset_launch_counts()
+            params, state, rep, met = step(params, state, rep, batch, ref,
+                                           *key)
+            counts = _add_counts(counts, ops.launch_counts())
+    leaves = tree_leaves(full_tree([params, state.mu, state.nu]))
+    return dict(met=met, rep=rep, leaves=leaves, step=int(state.step),
+                launches=counts)
+
+
+def _same_bits(torch, a, b, what: str) -> int:
+    """Checks two runs of :func:`_mesh_step_run` equal bit for bit;
+    returns the leaves compared."""
+    check(a["met"].keys() == b["met"].keys() and all(
+        torch.equal(a["met"][k], b["met"][k]) for k in a["met"]),
+        f"{what}: metrics differ")
+    check(torch.equal(a["rep"], b["rep"]), f"{what}: reputation differs")
+    check(len(a["leaves"]) == len(b["leaves"]) and all(
+        torch.equal(x, y) for x, y in zip(a["leaves"], b["leaves"])),
+        f"{what}: parameters or moments differ")
+    check(a["step"] == b["step"], f"{what}: optimizer steps differ")
+    return len(a["leaves"])
+
+
+def _mesh_inputs(torch, model, n: int, k: int, seq: int, dev):
+    """Weights from seed 0, ``n`` clients of 2 rows and ``k`` clouds of
+    one reference row, from ``dummy_batch`` on the card."""
+    p0 = model.init(0, device=dev)
+    batch = {key: v.to(dev) for key, v in
+             model.dummy_batch(1, 2 * n, seq).items()}
+    ref = {key: v.reshape((k, 1) + tuple(v.shape[1:])).to(dev) for key, v in
+           model.dummy_batch(2, k, seq).items()}
+    return p0, batch, ref
+
+
+def mesh_phase(torch, ops, dev, seq: int = 96, chunk: int = 40):
+    """On the (1, 1) mesh of ``launch.mesh.make_debug_mesh(1)`` (a
+    one-rank group holding NCCL and gloo, ended after): the two-phase and
+    fused steps at recurrentgemma-2b's and the dense test configurations
+    (one client, the mesh's data axis; two chained steps, AdamW after the
+    clip) give the bits of the same steps over ``ClientMesh(1)``:
+    metrics, reputation, parameters, moments, the step and the scan
+    launches; and ``make_plain_step`` with the mesh gives the bits of
+    ``mesh=None``'s (two AdamW steps)."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import ClientMesh, make_plain_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = make_debug_mesh(1, device=dev)
+    fl = FLConfig(n_clouds=1, clients_per_round=1)
+    out = {}
+    try:
+        for name, model in (("rg", _serve_test_model()),
+                            ("dense", _dense_test_model())):
+            p0, batch, ref = _mesh_inputs(torch, model, 1, 1, seq, dev)
+            for strategy in ("two_phase", "fused"):
+                what = f"mesh (1, 1) {name} {strategy}"
+                a, b = (_mesh_step_run(torch, ops, model, m, fl, strategy, p0,
+                                       batch, ref, chunk)
+                        for m in (mesh, ClientMesh(1)))
+                n = _same_bits(torch, a, b, what)
+                check(a["launches"] == b["launches"],
+                      f"{what}: launches {a['launches']} vs "
+                      f"{b['launches']}")
+                out[f"{name}_{strategy}"] = dict(
+                    leaves=n, scans=a["launches"]["linear_scan"])
+        model = _serve_test_model()
+        p0, batch, _ = _mesh_inputs(torch, model, 1, 1, seq, dev)
+        runs = []
+        for m in (mesh, None):
+            opt = _adamw_clipped(torch)
+            params = tree_map(lambda x: x.clone(), p0)
+            state = opt[0](params)
+            step = make_plain_step(model, m, opt, loss_chunk=chunk)
+            losses = []
+            for _ in range(2):
+                params, state, met = step(params, state, batch)
+                losses.append(met["loss"])
+            runs.append((losses, tree_leaves([params, state.mu, state.nu])))
+        check(all(torch.equal(x, y) for x, y in zip(runs[0][0], runs[1][0]))
+              and all(torch.equal(x, y)
+                      for x, y in zip(runs[0][1], runs[1][1])),
+              "make_plain_step with a mesh differs from mesh=None")
+        out["plain_step"] = dict(leaves=len(runs[0][1]))
+    finally:
+        end_group()
+    return out
+
+
+def mesh_steps_phase(torch, ops, dev, meshes, seq: int = 96,
+                     chunk: int = 40):
+    """The four-card mode's step checks, on ``meshes`` (shape -> the
+    live (4, 1) and (2, 2) meshes of the 4 ranks): the two-phase and
+    fused steps at recurrentgemma-2b's and the dense test
+    configurations (two chained steps, AdamW after
+    the clip, 2 rows a client, 2 clouds, 3 selected) over the mesh against
+    (a) the same steps over ``ClientMesh`` on the ranks of this rank's
+    model index (moments whole): bit for bit; (b) with SGD (0.05), the
+    same steps with every client on this rank alone (a one-rank group):
+    metrics, reputation and every parameter leaf within 1e-5 relative
+    (NCCL sums in another order; AdamW's m/√v would magnify those last
+    bits in the leaves near 0), the selection exact; (c) every rank's
+    gathered parameters and moments, by SHA-1: equal on all 4 ranks."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.optim import sgd
+    from repro_torch.train import ClientMesh
+    from repro_torch.train.steps import clients_group
+
+    rank = dist.get_rank()
+    alone = dist.new_group([rank], use_local_synchronization=True)
+    out = {}
+    for shape, mesh in meshes.items():
+        n = shape[0]
+        fl = FLConfig(n_clouds=2, clients_per_round=3)
+        whole = ClientMesh(n, group=clients_group(mesh))
+        for name, model in (("rg", _serve_test_model()),
+                            ("dense", _dense_test_model())):
+            p0, batch, ref = _mesh_inputs(torch, model, n, 2, seq, dev)
+            for strategy in ("two_phase", "fused"):
+                what = f"mesh {shape} {name} {strategy}"
+                a, b = (_mesh_step_run(torch, ops, model, m, fl, strategy,
+                                       p0, batch, ref, chunk)
+                        for m in (mesh, whole))
+                _same_bits(torch, a, b, what + " vs whole moments")
+                digest = hashlib.sha1()
+                for x in a["leaves"]:
+                    digest.update(x.cpu().contiguous().numpy().tobytes())
+                a, c = (_mesh_step_run(torch, ops, model, m, fl, strategy,
+                                       p0, batch, ref, chunk, opt=sgd(0.05))
+                        for m in (mesh, ClientMesh(n, group=alone)))
+                check(torch.equal(a["met"]["selected"], c["met"]["selected"]),
+                      f"{what}: selection differs from one rank's")
+                drift = {k: rel_err(torch, a["met"][k], c["met"][k])
+                         for k in ("loss", "phi", "trust", "beta")}
+                drift["rep"] = rel_err(torch, a["rep"], c["rep"])
+                drift["params"] = max(rel_err(torch, x, y) for x, y in
+                                      zip(a["leaves"], c["leaves"]))
+                check(max(drift.values()) <= 1e-5,
+                      f"{what}: vs one rank {drift} > 1e-5")
+                digests = [None] * dist.get_world_size()
+                dist.all_gather_object(digests, digest.hexdigest())
+                check(len(set(digests)) == 1,
+                      f"{what}: the ranks' parameters differ")
+                out[f"{shape[0]}x{shape[1]}_{name}_{strategy}"] = dict(
+                    drift, launches=a["launches"])
+    return out
+
+
+def mesh_main() -> int:
+    """``torchrun --nproc-per-node 4 chip_smoke.py --mesh``: the four-card
+    checks alone, one card a rank, NCCL (and gloo for host tensors):
+    :func:`mesh_steps_phase`; the shard paths at world 4 (their knobs with
+    32 clients a cloud, so 96 clients tile 4 ranks) and at world 3 on
+    ranks 0–2 (the paper's 90), each against ``Engine.step`` on every
+    rank, with each rank's kernel launches; ``MESH4_TRAIN`` at 2 and 3
+    layers, then at the deepest depth the two peaks say fits. Rank 0
+    writes ``chiprun_out/chip_smoke_mesh.json`` after each phase. A rank
+    that fails exits non-zero, and torchrun ends the others."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if "LOCAL_RANK" not in os.environ:
+        print("chip_smoke --mesh: run it under torchrun --nproc-per-node 4",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import live_mesh
+    from repro_torch.sharding import MeshShape
+
+    local = int(os.environ["LOCAL_RANK"])
+    torch.cuda.set_device(local)
+    dist.init_process_group("cpu:gloo,cuda:nccl")
+    try:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        check(world == 4, f"--mesh wants 4 ranks, got {world}")
+        dev = resolve_device(f"cuda:{local}")
+        lead = rank == 0
+        out = ROOT / "chiprun_out"
+        res = {"card": card_line(), "world": world,
+               "devices": torch.cuda.device_count(), "phase_s": {}}
+        for turn in (0, 1):              # rank 0 builds, the others load
+            if (rank == 0) == (turn == 0):
+                _build.build_all()
+            dist.barrier()
+
+        def record(key, value, t0):
+            every = [None] * world
+            dist.all_gather_object(every, value)
+            res[key] = every
+            res["phase_s"][key] = time.perf_counter() - t0
+            if lead:
+                out.mkdir(exist_ok=True)
+                (out / "chip_smoke_mesh.json").write_text(json.dumps(
+                    res, indent=1, default=float))
+                print(f"mesh {key} ({res['phase_s'][key]:.1f} s): "
+                      f"{json.dumps(value, default=float)}", flush=True)
+
+        # one live mesh a shape for the whole run: each mesh's groups,
+        # and their NCCL communicators, are made once
+        meshes = {shape: live_mesh(MeshShape(("data", "model"), shape), dev)
+                  for shape in ((4, 1), (2, 2))}
+        t0 = time.perf_counter()
+        record("steps", mesh_steps_phase(torch, ops, dev, meshes), t0)
+        for path in SHARD_PATHS:
+            t0 = time.perf_counter()
+            record(f"{path}_world4", shard_engine_phase(
+                torch, dev, path, fl_over=dict(clients_per_cloud=32)), t0)
+        peaks = {}
+        cap = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+        depths = [2, 3]
+        while depths:
+            layers = depths.pop(0)
+            t0 = time.perf_counter()
+            counts, got = fl_train_path_phase(
+                torch, ops, dev, f"fl_train_mixtral_mesh4_{layers}",
+                dict(MESH4_TRAIN, layers=layers),
+                mesh=meshes[MESH4_TRAIN["mesh"]])
+            check(all(v == 0 for v in counts.values()),
+                  f"mesh4 mixtral {layers} layers: launches {counts}")
+            # the card's memory outside PyTorch's allocator (the NCCL
+            # communicators' buffers, the CUDA context) counts too
+            free, total = torch.cuda.mem_get_info(dev)
+            got["outside_gib"] = (total - free
+                                  - torch.cuda.memory_reserved(dev)) / 2 ** 30
+            most = torch.tensor([got["peak_gib"], got["outside_gib"]],
+                                device=dev)
+            dist.all_reduce(most, op=dist.ReduceOp.MAX)
+            peaks[layers], outside = most.tolist()
+            record(f"fl_train_mixtral_mesh4_{layers}", got, t0)
+            if layers == 3:
+                per_layer = peaks[3] - peaks[2]
+                deepest = 3 + int((cap - MESH4_HEADROOM_GIB - outside
+                                   - peaks[3]) // per_layer)
+                res["deepest"] = dict(layers=deepest, per_layer_gib=per_layer,
+                                      card_gib=cap, outside_gib=outside,
+                                      peaks=peaks)
+                if deepest > 3:
+                    depths.append(deepest)
+        # last: rank 3 makes none of the world-3 groups, so the ranks'
+        # counts of groups (which name the locally synchronized ones)
+        # part here
+        three = dist.new_group([0, 1, 2])
+        for path in SHARD_PATHS:
+            t0 = time.perf_counter()
+            got = (shard_engine_phase(torch, dev, path, group=three)
+                   if rank < 3 else None)
+            record(f"{path}_world3", got, t0)
+    finally:
+        dist.destroy_process_group()
+    if lead:
+        print(res["card"])
+        print(json.dumps({"ok": True, "mesh": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3130,6 +3511,14 @@ def main() -> int:
           f"batch on the card leaf for leaf: "
           f"{worst['fl_train']} "
           f"({phase_s['agreement_fl_train']:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    worst["mesh"] = mesh_phase(torch, ops, dev)
+    phase_s["agreement_mesh"] = time.perf_counter() - t0
+    print(f"mesh (1, 1) of make_debug_mesh(1): the two-phase and fused "
+          f"steps (rg and dense test configurations, AdamW after the clip) "
+          f"equal ClientMesh(1)'s bit for bit, and make_plain_step with the "
+          f"mesh equals mesh=None's: {worst['mesh']} "
+          f"({phase_s['agreement_mesh']:.1f} s)", flush=True)
     for fam in FAMILY_TESTS:
         t0 = time.perf_counter()
         worst[f"family_{fam}"] = family_agreement_phase(torch, ops, dev, fam)
@@ -3326,4 +3715,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_main() if "--mesh" in sys.argv[1:] else main())

@@ -7,7 +7,6 @@ port's per-layer lists, and stacks them back, and carries an optimizer
 state (``OptState``) across the same way."""
 from __future__ import annotations
 
-import math
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -15,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.engine import RoundState
+from repro_torch.models.transformer import layer_period
 from repro_torch.optim import OptState
 from repro_torch.tree import tree_map
 
@@ -64,18 +64,9 @@ def round_state_from_numpy(params: Mapping[str, np.ndarray],
 # ---------------------------------------------------------------------------
 # model zoo: the reference's stacked layer groups <-> the port's list
 
-def _p_eff(cfg: ModelConfig) -> int:
-    """The reference's period of the per-layer signature
-    (``repro/models/transformer.py:_p_eff``)."""
-    p = len(cfg.block_pattern)
-    if cfg.n_experts > 0 and cfg.moe_every > 1:
-        p = math.lcm(p, cfg.moe_every)
-    return min(p, cfg.num_layers)
-
-
 def _unstack(tree: Mapping[str, Any], cfg: ModelConfig) -> List[Any]:
     """Layer i of the reference's {"scanned": [...], "tail": [...]}."""
-    p = _p_eff(cfg)
+    p = layer_period(cfg)
     r = cfg.num_layers // p
     return [tree_map(lambda a, i=i: np.asarray(a)[i // p], tree["scanned"][i % p])
             if i < r * p else tree["tail"][i - r * p]
@@ -92,7 +83,7 @@ def _stack_group(group: List[Any]) -> Any:
 
 
 def _stack(layers: List[Any], cfg: ModelConfig) -> Dict[str, List[Any]]:
-    p = _p_eff(cfg)
+    p = layer_period(cfg)
     r = cfg.num_layers // p
     return {"scanned": [_stack_group([layers[i * p + j] for i in range(r)])
                         for j in range(p)] if r > 0 else [],

@@ -7,11 +7,16 @@ encoder-decoder's its ``frames`` (``Model.dummy_batch``), and a VLM's
 
 The clients lie over the ranks of ``torch.distributed``'s default group:
 the one ``torchrun`` starts (its environment read here; each rank takes
-its local card), or a one-rank group the step starts and ends. The
-reference's ``--debug-mesh`` and ``--multi-pod`` name TPU meshes and are
-dropped, with its unused ``--shape``; ``--clients`` (default 4: the data
-axis of the reference's 8-device debug mesh) gives the client count the
-reference reads off the mesh.
+its local card), or a one-rank group started here or by the step. With
+``--debug-mesh`` (``--multi-pod``: a pod axis, clouds = pods, from 8
+ranks) they lie on the data axes of ``launch.mesh.make_debug_mesh`` over
+those ranks, one client a data index, with parameters and AdamW's
+moments stored by the reference's ``param_specs`` / ``opt_state_specs``.
+Without it, ``--clients`` (default 4: the data axis of the reference's
+8-device debug mesh) gives the client count (a ``ClientMesh``), and
+``--multi-pod`` asks for the production mesh, which needs 512 ranks. The
+reference's unused ``--shape`` is dropped. ``--ckpt`` saves whole
+tensors, so a checkpoint reads the same whatever the mesh.
 
   python -m repro_torch.launch.train --arch gemma2-2b --smoke --steps 10 \\
       --device cpu
@@ -19,6 +24,8 @@ reference reads off the mesh.
       --steps 1 --device cpu
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \\
       recurrentgemma-2b --smoke
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \\
+      mixtral-8x7b --smoke --debug-mesh
 """
 from __future__ import annotations
 
@@ -34,8 +41,11 @@ import torch.distributed as dist
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs.base import FLConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models.model import build_model
 from repro_torch.optim import adamw
+from repro_torch.sharding import (full_tree, opt_state_specs, param_specs,
+                                  shard_tree)
 from repro_torch.train import ClientMesh, make_fl_train_step
 
 
@@ -61,6 +71,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     choices=[None, "two_phase", "fused"])
     ap.add_argument("--smoke", action="store_true",
                     help="reduced model config (CPU-sized)")
+    ap.add_argument("--debug-mesh", action="store_true",
+                    help="the clients on the data axes of a small mesh "
+                         "over the ranks that exist")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--n-clouds", type=int, default=2)
     ap.add_argument("--seq", type=int, default=128)
@@ -77,22 +91,40 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          f"image tokens of {args.arch}: give --seq > {vis}")
     joined = _torchrun_group(args.device)
     device = resolve_device(joined or args.device)
+    started = False
+    if args.debug_mesh:
+        started = not dist.is_initialized()
+        mesh = make_debug_mesh(multi_pod=args.multi_pod, device=device)
+    elif args.multi_pod:
+        mesh = make_production_mesh(multi_pod=True, device=device)
+    else:
+        mesh = ClientMesh(args.clients)
     lead = not dist.is_initialized() or dist.get_rank() == 0
     fl = FLConfig(n_clouds=args.n_clouds, clients_per_round=4)
     opt = adamw(args.lr)
     strategy = args.strategy or model.cfg.fl_strategy
-    step, topo = make_fl_train_step(model, ClientMesh(args.clients), fl, opt,
-                                    strategy=strategy)
+    step, topo = make_fl_train_step(model, mesh, fl, opt, strategy=strategy)
     if args.batch % topo.n_clients:
         raise ValueError(f"--batch {args.batch} does not split over "
                          f"{topo.n_clients} clients")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if lead:
-        print(f"ranks={world} clients={topo.n_clients} "
+        where = ("" if isinstance(mesh, ClientMesh)
+                 else f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} ")
+        print(f"{where}ranks={world} clients={topo.n_clients} "
               f"clouds={topo.n_clouds} strategy={strategy}", flush=True)
 
     params = model.init(0, device=device)
-    opt_state = opt[0](params)
+    if isinstance(mesh, ClientMesh):
+        opt_state = opt[0](params)
+    else:
+        # stored where the step keeps them, the moments made in place
+        shapes = model.param_shapes()
+        params = shard_tree(params, param_specs(shapes, model.cfg, mesh),
+                            mesh)
+        mu_specs = opt_state_specs(opt[0](shapes), shapes, model.cfg,
+                                   mesh).mu
+        opt_state = opt[0](shard_tree(params, mu_specs, mesh))
     rep = torch.full((topo.n_clients,), 1.0 / topo.n_clients, device=device)
     met = {}
     t0 = time.time()
@@ -112,9 +144,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       f"rep={np.array2string(rep.cpu().numpy(), precision=3)}"
                       f" ({(time.time() - t0) / (it + 1):.2f}s/step)",
                       flush=True)
+        params = full_tree(params)
     finally:
         step.close()
-        if joined is not None:
+        if joined is not None or started:
             dist.destroy_process_group()
     if args.ckpt and lead:
         save_checkpoint(args.ckpt, {"params": params, "rep": rep},

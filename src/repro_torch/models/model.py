@@ -45,6 +45,11 @@ class Model:
         gen.manual_seed(seed)
         return tfm.init_params(gen, self.cfg, as_dtype(dtype))
 
+    def param_shapes(self, dtype: DTypeLike = torch.float32) -> Params:
+        """``init``'s tree on the meta device (shapes and dtypes, no
+        storage): the reference's ``jax.eval_shape(model.init, key)``."""
+        return tfm.param_shapes(self.cfg, as_dtype(dtype))
+
     # -- training -----------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, Tensor],
              loss_chunk: int = 512) -> Tuple[Tensor, Dict[str, Tensor]]:

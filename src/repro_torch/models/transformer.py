@@ -34,6 +34,17 @@ def layer_signature(cfg: ModelConfig, layer_idx: int) -> Tuple[str, bool]:
     return cfg.layer_types()[layer_idx], cfg.is_moe_layer(layer_idx)
 
 
+def layer_period(cfg: ModelConfig) -> int:
+    """The reference's period of the per-layer signature
+    (``repro/models/transformer.py:_p_eff``): it stacks layers [0, r·p),
+    r = num_layers // p, into p ``scanned`` groups (layer i in group
+    i % p, at depth i // p) and keeps the rest as its ``tail``."""
+    p = len(cfg.block_pattern)
+    if cfg.n_experts > 0 and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    return min(p, cfg.num_layers)
+
+
 def _sinusoidal(cfg: ModelConfig) -> bool:
     """Whether the model adds fixed sinusoidal positions to its input
     (no RoPE, and not an attention-free SSM)."""
@@ -68,6 +79,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
                        for _ in range(cfg.enc_layers)],
             "final_norm": torch.zeros(d, dtype=dtype, device=gen.device)}
     return params
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so the init functions
+    (which allocate on ``gen.device``) build shapes only: a meta tensor
+    takes the draws' arguments and draws nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """:func:`init_params`'s tree on the meta device: the same keys, shapes
+    and dtypes, no storage (the reference's ``jax.eval_shape`` of
+    ``Model.init``). llama4-maverick's ~394 B weights cost nothing."""
+    return init_params(_MetaGenerator(), cfg, dtype)
 
 
 def param_count(params: Params) -> int:

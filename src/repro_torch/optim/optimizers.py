@@ -9,7 +9,12 @@ and returns them, where the reference returns new arrays: its jitted
 train step donates them, and at full width (recurrentgemma-2b in fp32:
 11.6 GB of weights, 23.2 GB of moments) old and new copies would not fit
 on one card together. The step counter and learning rate are 0-d
-tensors on the parameters' device (no host sync a step)."""
+tensors on the parameters' device (no host sync a step).
+
+The trees' leaves may be DTensors (a train step over a device mesh):
+each op keeps the placements, so a gradient given whole (replicated) is
+cut to the moments' slice locally, and ``clip_by_global_norm``'s sum
+over it is the whole tensor's, the same bits as on plain tensors."""
 from __future__ import annotations
 
 import math
@@ -31,8 +36,12 @@ class OptState(NamedTuple):
 
 
 def _zeros_like_f32(tree: Params) -> Params:
-    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                          device=x.device), tree)
+    """fp32 zeros of each leaf's shape, stored as the leaf is: a
+    ``DTensor`` gives a ``DTensor`` of the same placements (ZeRO-1
+    moments made from parameters placed by ``opt_state_specs``), a meta
+    tensor a meta tensor."""
+    return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                    tree)
 
 
 def _step0(params: Params) -> Tensor:

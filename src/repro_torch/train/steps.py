@@ -3,16 +3,24 @@ Algorithm 1 as one federated train step of a language model, in the
 reference's two strategies, and the plain one-device step.
 
 The reference lays one client on each index of its mesh's data axes and
-leaves the ``model`` axis to GSPMD. The port lays the clients over the
-ranks of a ``torch.distributed`` group, as ``federated/sharded.py`` lays
-out its round engine: rank r owns the contiguous client block
-[r·n_loc, (r + 1)·n_loc) on the ``mesh_axes`` mesh of the group's ranks,
-whose ``client`` groups (mesh columns, owning whole clouds) carry the
-intra-cloud sums and whose ``cloud`` groups (mesh rows) the cross-cloud
-ones. One rank may hold every client: that is the step on one card. With
-no group initialized the first call starts a one-rank group
-(``ensure_group``: gloo on the CPU, ``cpu:gloo,cuda:nccl`` on the card),
-which the step's ``close()`` ends.
+leaves the ``model`` axis to GSPMD. The port takes the same mesh as a
+live ``DeviceMesh`` (``launch.mesh``): clients = the product of the data
+axes, one a data index, clouds = the ``pod`` axis when there is one,
+else contiguous client blocks (``MeshTopology.from_mesh``). The ranks
+that share a ``model`` index hold every client between them; ranks along
+``model`` repeat their data index's compute (tensor-parallel compute is
+not ported yet) and, before the update, take the gradient, reputation
+and metrics of the model-index-0 rank, so their copies agree bit for
+bit. Or it takes a ``ClientMesh(n_clients, group)``: the clients over
+the ranks of a ``torch.distributed`` group, as ``federated/sharded.py``
+lays out its round engine, rank r owning the contiguous client block
+[r·n_loc, (r + 1)·n_loc). Either way the clients' ranks form the
+``mesh_axes`` mesh, whose ``client`` groups (mesh columns, owning whole
+clouds) carry the intra-cloud sums and whose ``cloud`` groups (mesh rows)
+the cross-cloud ones. One rank may hold every client: that is the step
+on one card. With no group initialized a ``ClientMesh`` step's first
+call starts a one-rank group (``ensure_group``: gloo on the CPU,
+``cpu:gloo,cuda:nccl`` on the card), which the step's ``close()`` ends.
 
 * ``two_phase`` (paper-faithful): every client's full gradient, Eq. 7–13
   on the true last-layer gradients and full-gradient norms, the
@@ -31,28 +39,39 @@ which the step's ``close()`` ends.
   of the lm-head gradient) from one forward without gradients, the trust
   weights from them, then ONE backward of the trust-weighted loss over
   each rank's rows, all-reduced. Both batch forwards route MoE tokens
-  over the whole global batch (``moe.route_over_ranks``), as the
-  reference's forward of the sharded batch does: the capacity, the kept
-  tokens and the aux loss are the global batch's. A two-phase client's
-  gradient routes over the client's rows, as in the reference's
-  ``shard_map`` groups.
+  over the whole global batch (``moe.route_over_ranks`` over the clients'
+  ranks), as the reference's forward of the sharded batch does: the
+  capacity, the kept tokens and the aux loss are the global batch's. A
+  two-phase client's gradient routes over the client's rows, as in the
+  reference's ``shard_map`` groups.
 
 Both return ``(params, opt_state, rep, metrics)`` with the reference's
-metric keys. The optimizer updates ``params`` and its state in place and
-keeps its state whole on every rank (the reference's ZeRO-1 moment
-sharding waits for the port of ``sharding/``). Every rank is given the
-whole global batch (client-major rows) and the reference batch and reads
-its own rows.
+metric keys. Over a ``ClientMesh`` the optimizer updates ``params`` and
+its state in place, whole on every rank. Over a ``DeviceMesh`` the step
+stores them where the reference's ``in_shardings`` put them: parameters
+as DTensors by ``param_specs`` (over the data axes too for the ``fsdp``
+archs), AdamW's moments by ``opt_state_specs`` (ZeRO-1); whole tensors
+given to it are cut to that placement on entry, and the step counter
+stays whole. Each step gathers the parameters whole for the forwards and
+backwards (the reference's ``P()`` in-spec); after the gradient's
+all-reduce each rank updates only its slice of the moments and of the
+parameters, which are then gathered back to their stored placement. The
+update sees the gradient whole (a replicated DTensor), so a global-norm
+clip reads all of it. Every rank is given the whole global batch
+(client-major rows) and the reference batch and reads its own rows.
 """
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.core.selection import select_clients
@@ -64,6 +83,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import chunked_cross_entropy, softcap
 from repro_torch.models.model import Model
 from repro_torch.models.moe import route_over_ranks
+from repro_torch.optim import OptState
+from repro_torch.sharding import (axis_sizes, full_tree, opt_state_specs,
+                                  param_specs, shard_tree)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -75,20 +97,22 @@ EPS = 1e-12
 
 @dataclass(frozen=True)
 class ClientMesh:
-    """The port's stand-in for the reference's single-pod device mesh:
-    the client count (the size of the reference mesh's ``data`` axis)
-    and the group whose ranks hold the clients (``None``: the default
-    group, started as a one-rank group if none is initialized). The
-    reference's multi-pod meshes (a cloud a pod) have no counterpart."""
+    """The clients over the ranks of a group without a device mesh: the
+    client count (what the reference reads off its mesh's data axes) and
+    the group whose ranks hold the clients (``None``: the default group,
+    started as a one-rank group if none is initialized)."""
     n_clients: int
     group: Optional[dist.ProcessGroup] = None
 
 
+MeshLike = Union[ClientMesh, DeviceMesh]
+
+
 @dataclass(frozen=True)
 class MeshTopology:
-    """Client/cloud layout of the mesh: clouds are contiguous groups of
-    the clients (``pod_aligned`` False: the reference's clouds are pods
-    only on a multi-pod mesh)."""
+    """Client/cloud layout derived from the mesh: clients = the data axes'
+    shard groups; clouds = pods on a multi-pod mesh (``pod_aligned``),
+    else contiguous groups of the clients."""
     daxes: Tuple[str, ...]
     n_clients: int
     n_clouds: int
@@ -96,13 +120,22 @@ class MeshTopology:
     pod_aligned: bool
 
     @staticmethod
-    def from_mesh(mesh: ClientMesh, n_clouds: Optional[int] = None
-                  ) -> "MeshTopology":
-        n_clients = mesh.n_clients
-        k = n_clouds or min(4, n_clients)
-        while n_clients % k:
-            k -= 1
-        return MeshTopology(("data",), n_clients, k, n_clients // k, False)
+    def from_mesh(mesh, n_clouds: Optional[int] = None) -> "MeshTopology":
+        """From a ``DeviceMesh``, a ``sharding.MeshShape`` or a
+        ``ClientMesh`` (a single-pod mesh of ``n_clients`` data
+        indices)."""
+        sizes = ({"data": mesh.n_clients} if isinstance(mesh, ClientMesh)
+                 else axis_sizes(mesh))
+        daxes = tuple(a for a in ("pod", "data") if a in sizes)
+        n_clients = math.prod(sizes[a] for a in daxes)
+        if "pod" in sizes:
+            k, pod_aligned = sizes["pod"], True
+        else:
+            k = n_clouds or min(4, n_clients)
+            while n_clients % k:
+                k -= 1
+            pod_aligned = False
+        return MeshTopology(daxes, n_clients, k, n_clients // k, pod_aligned)
 
     def cloud_of(self) -> np.ndarray:
         return np.arange(self.n_clients) // self.clients_per_cloud
@@ -117,24 +150,84 @@ class MeshTopology:
         return c_intra + edge / max(self.clients_per_cloud, 1)
 
 
+def _model_axis(mesh: DeviceMesh) -> Tuple[Optional[int], int]:
+    """(the ``model`` dim of ``mesh``, or ``None``; this rank's index
+    along it)."""
+    names = list(mesh.mesh_dim_names)
+    if "model" not in names:
+        return None, 0
+    m = names.index("model")
+    return m, int(mesh.get_coordinate()[m])
+
+
+def clients_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The mesh's own group along its data axes through this rank: the
+    ranks that share its ``model`` index, ordered by their (pod, data)
+    coordinates major to minor, which hold the clients 0..N-1 (a
+    multi-pod mesh flattens its pod and data axes once)."""
+    daxes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    sub = mesh[daxes[0]] if len(daxes) == 1 else mesh[daxes]._flatten()
+    return sub.get_group()
+
+
+def _mesh_cloud_groups(mesh: DeviceMesh, kc: int, pc: int
+                       ) -> Tuple[dist.ProcessGroup, dist.ProcessGroup]:
+    """This rank's intra- and cross-cloud groups over a mesh (as
+    ``mesh_groups`` gives them over its clients' group): on a multi-pod
+    mesh, a cloud a pod, its data and pod axes' own groups; else those of
+    the mesh's ranks laid out as (cloud, client, model...)."""
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" in names:
+        return mesh.get_group("data"), mesh.get_group("pod")
+    view = DeviceMesh(mesh.device_type,
+                      mesh.mesh.reshape((kc, pc) + tuple(mesh.mesh.shape[1:])),
+                      mesh_dim_names=("cloud", "client") + names[1:])
+    return view.get_group("client"), view.get_group("cloud")
+
+
+# each mesh's or group's intra- and cross-cloud groups by (kc, pc), keyed
+# by the object's identity (two meshes of one layout compare equal, and one
+# may outlive its process group), made once and dropped with it: every
+# NCCL communicator holds buffers on the card, so the steps over one mesh
+# or group share theirs
+_CLOUD_GROUPS: Dict[int, dict] = {}
+
+
+def _cloud_groups_of(owner: Any) -> dict:
+    key = id(owner)
+    if key not in _CLOUD_GROUPS:
+        _CLOUD_GROUPS[key] = {}
+        weakref.finalize(owner, _CLOUD_GROUPS.pop, key, None)
+    return _CLOUD_GROUPS[key]
+
+
 class _Ranks:
     """The step's place in its group, set up at its first call (the
     params' device picks the backend of a one-rank group it starts): its
-    client block, the clouds its mesh column owns, the mesh groups."""
+    client block, the clouds its mesh column owns, the mesh groups; over
+    a ``DeviceMesh``, also the group of its model-axis replicas."""
 
-    def __init__(self, topo: MeshTopology, flcfg: FLConfig,
-                 group: Optional[dist.ProcessGroup]):
-        self.topo, self.group = topo, group
+    def __init__(self, topo: MeshTopology, flcfg: FLConfig, mesh: MeshLike):
+        self.topo, self.mesh = topo, mesh
+        self.group = mesh.group if isinstance(mesh, ClientMesh) else None
         self.costs = topo.unit_costs(flcfg.c_intra, flcfg.c_cross)
         self.device: Optional[torch.device] = None
         self.started = False
+        self.replicas: Optional[dist.ProcessGroup] = None
 
     def start(self, params) -> "_Ranks":
         dev = resolve_device(tree_leaves(params)[0].device)
         if self.device is not None:
             return self
         topo = self.topo
-        self.started = ensure_group(dev)
+        if isinstance(self.mesh, ClientMesh):
+            self.started = ensure_group(dev)
+        else:
+            self.group = clients_group(self.mesh)
+            m, _ = _model_axis(self.mesh)
+            if m is not None and self.mesh.shape[m] > 1:
+                self.replicas = self.mesh.get_group("model")
+                self.replica_src = dist.get_global_rank(self.replicas, 0)
         world = len(group_ranks(self.group))
         axes = mesh_axes(topo.n_clouds, topo.n_clients, world)
         if axes is None:
@@ -142,7 +235,13 @@ class _Ranks:
             raise ValueError(f"{topo.n_clients} clients do not tile "
                              f"{world} ranks")
         kc, pc = axes
-        self.client_group, self.cloud_group = mesh_groups(self.group, kc, pc)
+        over_group = isinstance(self.mesh, ClientMesh)
+        made = _cloud_groups_of(
+            (self.group or dist.group.WORLD) if over_group else self.mesh)
+        if (kc, pc) not in made:
+            made[kc, pc] = (mesh_groups(self.group, kc, pc) if over_group
+                            else _mesh_cloud_groups(self.mesh, kc, pc))
+        self.client_group, self.cloud_group = made[kc, pc]
         rank = dist.get_rank(self.group)
         self.n_loc = topo.n_clients // world
         self.i0 = rank * self.n_loc
@@ -184,6 +283,17 @@ class _Ranks:
         buf[self.i0:self.i0 + self.n_loc] = x_loc
         return self.all_sum(buf)
 
+    def agree(self, tensors: List[Tensor]) -> None:
+        """Overwrite ``tensors`` with the model-index-0 replica's, in place
+        (nothing without model-axis replicas): the replicas' results can
+        differ in the last bits on the card (``index_add_`` in the MoE
+        dispatch, each data group's own all-reduce), and each updates its
+        own slice of parameters that are then gathered."""
+        if self.replicas is None:
+            return
+        for x in tensors:
+            dist.broadcast(x, src=self.replica_src, group=self.replicas)
+
     def close(self) -> None:
         """End the one-rank default group, and with it the mesh groups,
         when the first call started it (mesh groups made in a group the
@@ -194,6 +304,62 @@ class _Ranks:
         if self.started:
             dist.destroy_process_group()
         self.device, self.started = None, False
+
+
+class _Whole:
+    """A ``ClientMesh`` step's storage: parameters and optimizer state
+    whole on every rank, updated in place."""
+
+    def place(self, params, opt_state):
+        return params, opt_state
+
+    def gather(self, params):
+        return params
+
+    def update(self, opt_update, grads, opt_state, params):
+        return opt_update(grads, opt_state, params)
+
+
+class _BySpec:
+    """A ``DeviceMesh`` step's storage: parameters by ``param_specs``,
+    moments by ``opt_state_specs`` (ZeRO-1), as DTensors."""
+
+    def __init__(self, model: Model, mesh: DeviceMesh):
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"a train step runs over a live DeviceMesh or "
+                            f"a ClientMesh, not {type(mesh).__name__}")
+        shapes = model.param_shapes()
+        self.mesh = mesh
+        self.pspecs = param_specs(shapes, model.cfg, mesh)
+        self.mspecs = opt_state_specs(OptState(None, shapes, None), shapes,
+                                      model.cfg, mesh).mu
+
+    def _moments(self, tree):
+        return None if tree is None else shard_tree(tree, self.mspecs,
+                                                    self.mesh)
+
+    def place(self, params, opt_state):
+        step, mu, nu = opt_state
+        return (shard_tree(params, self.pspecs, self.mesh),
+                OptState(step, self._moments(mu), self._moments(nu)))
+
+    def gather(self, params):
+        return full_tree(params)
+
+    def update(self, opt_update, grads, opt_state, params):
+        """Each rank's slice: the gradient goes in whole (replicated; each
+        op cuts it to the moments' slice locally), the parameters at the
+        moments' placement; the result goes back to ``param_specs``'."""
+        whole = [Replicate()] * self.mesh.ndim
+        g = tree_map(lambda x: DTensor.from_local(x, self.mesh, whole,
+                                                  run_check=False), grads)
+        p = shard_tree(params, self.mspecs, self.mesh)
+        p, opt_state = opt_update(g, opt_state, p)
+        return shard_tree(p, self.pspecs, self.mesh), opt_state
+
+
+def _storage(model: Model, mesh: MeshLike):
+    return _Whole() if isinstance(mesh, ClientMesh) else _BySpec(model, mesh)
 
 
 class FLTrainStep:
@@ -290,7 +456,7 @@ def _normalized(x: Tensor, k: int) -> Tensor:
 # ---------------------------------------------------------------------------
 # two_phase strategy (paper-faithful)
 
-def make_two_phase_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
+def make_two_phase_step(model: Model, mesh: MeshLike, flcfg: FLConfig,
                         optimizer, *, loss_chunk: int = 512
                         ) -> Tuple[FLTrainStep, MeshTopology]:
     """``(step, topo)``; ``step(params, opt_state, rep, batch, ref_batch)
@@ -305,12 +471,15 @@ def make_two_phase_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
     topo = MeshTopology.from_mesh(mesh, flcfg.n_clouds)
     _, opt_update = optimizer
     grad = model.grad_fn(loss_chunk)
-    ranks = _Ranks(topo, flcfg, mesh.group)
+    ranks = _Ranks(topo, flcfg, mesh)
+    store = _storage(model, mesh)
     n, k, cpc = topo.n_clients, topo.n_clouds, topo.clients_per_cloud
 
     def step(params, opt_state, rep, batch, ref_batch):
         r = ranks.start(params)
         dev = r.device
+        params, opt_state = store.place(params, opt_state)
+        whole = store.gather(params)
         rep, sel_mask, sel = _selection(r, flcfg, rep)
         per = _per_client(batch, n)
         cloud_loc = r.cloud_of[r.clients.start:r.clients.stop]
@@ -320,14 +489,14 @@ def make_two_phase_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
         # pass A: keep each gradient's last layer, full norm and loss
         lls, gns, losses = [], [], []
         for i in r.clients:
-            (loss, _), g = grad(params, _rows(batch, i * per, (i + 1) * per))
+            (loss, _), g = grad(whole, _rows(batch, i * per, (i + 1) * per))
             lls.append(_last_layer(g, cfg))
             gns.append(_full_norm(g))
             losses.append(loss)
             del g
         ll_ref, gn_ref = [], []
         for c in range(k):
-            _, g = grad(params, ref_of(c))
+            _, g = grad(whole, ref_of(c))
             ll_ref.append(_last_layer(g, cfg))
             gn_ref.append(_full_norm(g))
             del g
@@ -380,21 +549,20 @@ def make_two_phase_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
                             / torch.clamp(ts_cloud[cloud_loc], min=EPS),
                             torch.zeros_like(coef_loc))
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=dev), params)
+                                             device=dev), whole)
         w_host, beta_host = w_loc.tolist(), beta_n.tolist()
         terms = [(_rows(batch, i * per, (i + 1) * per), w_loc[j])
                  for j, i in enumerate(r.clients) if w_host[j] != 0.0]
         terms += [(ref_of(c), beta_n[c]) for c in range(k)
                   if not live[c] and r.owner(c) and beta_host[c] != 0.0]
         for b, w in terms:
-            _, g = grad(params, b)
+            _, g = grad(whole, b)
             for a, x in zip(tree_leaves(acc), tree_leaves(g)):
                 a.add_(x.to(torch.float32) * w)
             del g
+        del whole
         for a in tree_leaves(acc):
             r.all_sum(a)
-        params, opt_state = opt_update(acc, opt_state, params)
-        del acc
 
         loss_all = r.gather(torch.stack(losses))
         metrics = {
@@ -406,6 +574,8 @@ def make_two_phase_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
             "selected": sel,
             "round_cost_units": torch.sum(sel * r.unit_costs),
         }
+        r.agree(tree_leaves(acc) + [new_rep] + list(metrics.values()))
+        params, opt_state = store.update(opt_update, acc, opt_state, params)
         return params, opt_state, new_rep, metrics
 
     return FLTrainStep(step, ranks), topo
@@ -499,7 +669,7 @@ def _weighted_grad(params, cfg: ModelConfig, batch: Dict[str, Tensor],
     return tree_unflatten(params, grads)
 
 
-def make_fused_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
+def make_fused_step(model: Model, mesh: MeshLike, flcfg: FLConfig,
                     optimizer, *, loss_chunk: int = 512
                     ) -> Tuple[FLTrainStep, MeshTopology]:
     """Signature-fused Cost-TrustFL: ``(step, topo)``, ``step(params,
@@ -508,12 +678,15 @@ def make_fused_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
     cfg = model.cfg
     topo = MeshTopology.from_mesh(mesh, flcfg.n_clouds)
     _, opt_update = optimizer
-    ranks = _Ranks(topo, flcfg, mesh.group)
+    ranks = _Ranks(topo, flcfg, mesh)
+    store = _storage(model, mesh)
     n, k = topo.n_clients, topo.n_clouds
 
     def step(params, opt_state, rep, batch, ref_batch, key: KeyLike):
         r = ranks.start(params)
         dev = r.device
+        params, opt_state = store.place(params, opt_state)
+        whole = store.gather(params)
         omega = draw_omega(key, cfg.vocab_size, flcfg.sketch_dim, dev)
         per = _per_client(batch, n)
         lo, hi = r.i0 * per, (r.i0 + r.n_loc) * per
@@ -523,11 +696,11 @@ def make_fused_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
         with torch.no_grad():
             with route_over_ranks(r.group):
                 losses_loc, sigs_loc, _ = _signatures(
-                    params, cfg, _rows(batch, lo, hi), r.n_loc, omega,
+                    whole, cfg, _rows(batch, lo, hi), r.n_loc, omega,
                     loss_chunk)
             ref_flat = {key_: v.reshape((-1,) + tuple(v.shape[2:]))
                         for key_, v in ref_batch.items()}
-            _, ref_sigs, ref_norms = _signatures(params, cfg, ref_flat, k,
+            _, ref_sigs, ref_norms = _signatures(whole, cfg, ref_flat, k,
                                                  omega, loss_chunk)
         losses, sigs = r.gather(losses_loc), r.gather(sigs_loc)
         signorm = torch.linalg.vector_norm(sigs, dim=1)
@@ -568,12 +741,11 @@ def make_fused_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
             * w.repeat_interleave(per)[:, None]
         denom = torch.clamp(torch.sum(mask_w), min=1.0)
         with route_over_ranks(r.group):
-            g = _weighted_grad(params, cfg, _rows(batch, lo, hi),
+            g = _weighted_grad(whole, cfg, _rows(batch, lo, hi),
                                mask_w[lo:hi], denom, loss_chunk)
+        del whole
         for x in tree_leaves(g):
             r.all_sum(x)
-        params, opt_state = opt_update(g, opt_state, params)
-        del g
         metrics = {
             "loss": torch.sum(losses * sel) / torch.clamp(torch.sum(sel),
                                                           min=1.0),
@@ -581,12 +753,15 @@ def make_fused_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
             "selected": sel,
             "round_cost_units": torch.sum(sel * r.unit_costs),
         }
+        r.agree(tree_leaves(g) + [new_rep] + list(metrics.values()))
+        params, opt_state = store.update(opt_update, g, opt_state, params)
+        del g
         return params, opt_state, new_rep, metrics
 
     return FLTrainStep(step, ranks), topo
 
 
-def make_fl_train_step(model: Model, mesh: ClientMesh, flcfg: FLConfig,
+def make_fl_train_step(model: Model, mesh: MeshLike, flcfg: FLConfig,
                        optimizer, *, strategy: Optional[str] = None,
                        loss_chunk: int = 512
                        ) -> Tuple[FLTrainStep, MeshTopology]:
@@ -607,13 +782,10 @@ def make_plain_step(model: Model, mesh, optimizer: Tuple[Callable, Callable],
     {"loss", "lm_loss", "aux_loss"})``: ``model.grad_fn`` then the
     optimizer's update. The update writes into ``params`` and
     ``opt_state``'s moments and returns them (the reference's jitted step
-    donates both). ``mesh`` must be ``None``: data-parallel training of
-    one model over a mesh is not ported yet. The step holds the card to
-    the port's numerics contract (``resolve_device``: fp32 matmuls,
-    deterministic cuDNN)."""
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh is not ported yet; "
-                                  "pass mesh=None")
+    donates both). ``mesh`` is taken and not used, as in the reference:
+    the step is the same with any mesh or ``None``. The step holds the
+    card to the port's numerics contract (``resolve_device``: fp32
+    matmuls, deterministic cuDNN)."""
     _, opt_update = optimizer
     grad = model.grad_fn(loss_chunk)
 

@@ -178,16 +178,16 @@ _REFERENCE = textwrap.dedent("""
 def reference(tmp_path_factory):
     """Every case's ``STEPS`` chained reference steps, from the port's
     seeded weights and the same numpy batches: {case: {"steps": [metrics,
-    "rep", "omega"], "params": the final reference tree}}. Under
-    pytest-xdist the workers of one session share one run (the first to
+    "rep", "omega"], "params": the final reference tree}}. The modules
+    and pytest-xdist workers of one session share one run (the first to
     take the lock computes it into the session's temporary root; the
     others wait and read it), since the cases' tests may land on several
-    workers."""
+    workers and ``test_torch_mesh_steps`` holds its mesh steps to it."""
     from filelock import FileLock
 
     shared = os.environ.get("PYTEST_XDIST_WORKER") is not None
-    work = (tmp_path_factory.getbasetemp().parent if shared
-            else tmp_path_factory.mktemp("fl_steps"))
+    work = tmp_path_factory.getbasetemp()
+    work = work.parent if shared else work
     out = work / "fl_steps_reference.pkl"
     with FileLock(str(out) + ".lock"):
         if not out.exists():
@@ -229,28 +229,14 @@ def _drifts(got: dict, want: dict) -> dict:
     return out
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_world_size_one_matches_reference(name, reference, monkeypatch):
-    """``STEPS`` chained SGD steps at world size 1 (one gloo rank, started
-    and ended by the step) against the reference's on the mesh (4, 1):
-    the mask exact, the cost units within 1e-6, the loss, φ, trust, β and
-    reputation within 1e-5 relative, every parameter leaf and the update
-    within 1e-4.
-    The second step starts from the first's reputation (not uniform).
-    The two-phase step evaluates N + K gradients in pass A and one more
-    per client with a weight (or cloud falling back on its reference) in
-    pass B: the model's loss is counted."""
+def hold_to_reference(name: str, recs: list, params, ref: dict) -> None:
+    """A port run of the case's ``STEPS`` chained steps (a record a step
+    {metric: array, "rep": array}, the final params) against the
+    reference's: the mask exact, the cost units within 1e-6, the loss,
+    φ, trust, β and reputation within 1e-5 relative, every parameter
+    leaf and the update within 1e-4."""
     import jax
-    from repro_torch.models import transformer as tfm
 
-    ref = reference[name]
-    omegas = [s["omega"] for s in ref["steps"]]
-    calls = []
-    loss_fn = tfm.loss_fn
-    monkeypatch.setattr(tfm, "loss_fn", lambda *a, **k: (calls.append(1),
-                                                         loss_fn(*a, **k))[1])
-    recs, params = run_steps(name, omegas=omegas)
-    assert not dist.is_initialized()
     for t, (got, want) in enumerate(zip(recs, ref["steps"])):
         assert set(METRICS) <= set(want)
         assert np.array_equal(got["selected"], want["selected"]), t
@@ -275,6 +261,30 @@ def test_world_size_one_matches_reference(name, reference, monkeypatch):
     print(f"{name}: worst parameter leaf {worst:.2e}, the update "
           f"{update:.2e} relative")
     assert update <= 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_world_size_one_matches_reference(name, reference, monkeypatch):
+    """``STEPS`` chained SGD steps at world size 1 (one gloo rank, started
+    and ended by the step) against the reference's on the mesh (4, 1):
+    the mask exact, the cost units within 1e-6, the loss, φ, trust, β and
+    reputation within 1e-5 relative, every parameter leaf and the update
+    within 1e-4.
+    The second step starts from the first's reputation (not uniform).
+    The two-phase step evaluates N + K gradients in pass A and one more
+    per client with a weight (or cloud falling back on its reference) in
+    pass B: the model's loss is counted."""
+    from repro_torch.models import transformer as tfm
+
+    ref = reference[name]
+    omegas = [s["omega"] for s in ref["steps"]]
+    calls = []
+    loss_fn = tfm.loss_fn
+    monkeypatch.setattr(tfm, "loss_fn", lambda *a, **k: (calls.append(1),
+                                                         loss_fn(*a, **k))[1])
+    recs, params = run_steps(name, omegas=omegas)
+    assert not dist.is_initialized()
+    hold_to_reference(name, recs, params, ref)
     if CASES[name][4] == "two_phase":
         k = FL["n_clouds"]
         want_calls = 0

@@ -48,10 +48,8 @@ from repro_torch.launch import serve as serve_mod
 from repro_torch.models import attention, common, mlp, rglru
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model, build_model
-from repro_torch.optim import adamw
 from repro_torch.serve.decode import (greedy_generate, make_prefill_step,
                                       make_serve_step)
-from repro_torch.train import make_plain_step
 
 T_PROMPT, MAX_LEN = 96, 104          # T > window 64: the ring wraps
 
@@ -170,11 +168,12 @@ def test_full_width_layout_and_true_parameter_count():
 
 
 def test_unported_arch_and_layers_raise():
-    """What the port still refuses, each naming the missing feature: the
-    serve steps over a mesh and training one model over a mesh. Every
-    registered arch now builds, and one-token attention over a cache of
-    more than 2^20 slots runs (chunk by chunk) and equals the whole-cache
-    softmax."""
+    """What the port still refuses, naming the missing feature: the serve
+    steps over a mesh (the mesh decode comes with tensor-parallel
+    compute). Every registered arch now builds, one-token attention over
+    a cache of more than 2^20 slots runs (chunk by chunk) and equals the
+    whole-cache softmax, and ``make_plain_step`` takes a mesh
+    (``tests/test_torch_train.py``)."""
     with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
         get_arch("no-such-arch")
     gen = torch.Generator().manual_seed(0)
@@ -190,9 +189,6 @@ def test_unported_arch_and_layers_raise():
         with pytest.raises(NotImplementedError,
                            match="serving over a mesh is not ported yet"):
             make(model, object())
-    with pytest.raises(NotImplementedError,
-                       match="training over a mesh is not ported yet"):
-        make_plain_step(model, object(), adamw(1e-3))
 
 
 def test_init_on_cuda_without_gpu_raises(monkeypatch):

@@ -401,10 +401,48 @@ def test_three_plain_steps_match_reference():
     print(f"three AdamW steps: worst leaf {worst:.2e} relative")
 
 
-def test_plain_step_refuses_a_mesh():
+def test_plain_step_with_a_mesh_equals_the_step_without():
+    """``make_plain_step(model, mesh, opt)`` takes a mesh and leaves it
+    unused, as the reference's: over the live (1, 1) mesh of
+    ``launch.mesh.make_debug_mesh`` (a one-rank gloo group) and over the
+    production mesh's shape, two AdamW steps give the bits of
+    ``mesh=None``'s: loss, every parameter and moment, the step."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    from repro_torch.tree import tree_leaves
+
     cfg = _rg_small_cfgs()[1]
-    with pytest.raises(NotImplementedError, match="mesh is not ported yet"):
-        make_plain_step(Model(cfg), object(), adamw(1e-3))
+    model = Model(cfg)
+    stream = make_token_stream(3000, cfg.vocab_size, seed=3)
+    batches = []
+    for toks in [next(token_batches(stream, batch=2, seq=32, seed=s))
+                 for s in (3, 4)]:
+        batches.append(_tbatch({"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:],
+                                "mask": np.ones((2, 32), np.float32)}))
+
+    def two_steps(mesh):
+        opt = adamw(1e-2, weight_decay=0.01)
+        params = model.init(2, device="cpu")
+        state = opt[0](params)
+        step = make_plain_step(model, mesh, opt, loss_chunk=16)
+        losses = []
+        for b in batches:
+            params, state, met = step(params, state, b)
+            losses.append(met["loss"])
+        return losses, tree_leaves([params, state.mu, state.nu]), state.step
+
+    want = two_steps(None)
+    mesh = make_debug_mesh(device="cpu")
+    try:
+        runs = [two_steps(mesh), two_steps(make_production_mesh())]
+    finally:
+        dist.destroy_process_group()
+    for losses, leaves, count in runs:
+        assert all(torch.equal(a, b) for a, b in zip(losses, want[0]))
+        assert len(leaves) == len(want[1])
+        assert all(torch.equal(a, b) for a, b in zip(leaves, want[1]))
+        assert int(count) == int(want[2]) == 2
 
 
 # ---------------------------------------------------------------------------
