@@ -269,7 +269,11 @@ line. Exits non-zero without a CUDA device, and when
 
     torchrun --nproc-per-node 4 chip_smoke.py --mesh   # four cards
 
-runs the four-card checks alone (``mesh_main``): the steps over the
+runs the four-card checks alone (``mesh_main``): first the serve paths
+over a mesh (``MESH_SERVE_PATHS``: mistral-large-123b at all 88 layers
+and mixtral-8x7b at all 32 over (1, 4); ``MESH_LONG``: gemma2-2b's
+524,288-slot cache over (4, 1)), each after a 2-layer fp32 check against
+one card; then the steps over the
 (4, 1) and (2, 2) meshes against the whole-moment steps (bit for bit)
 and a one-rank run (1e-5), the shard paths at world 4 and 3 against
 ``Engine.step``, and mixtral-8x7b at full width over the (4, 1) mesh
@@ -496,6 +500,41 @@ FL_TRAIN_PATHS = {
 # (MESH4_HEADROOM_GIB left free)
 MESH4_TRAIN = dict(FL_TRAIN_PATHS["fl_train_mixtral"], mesh=(4, 1))
 MESH4_HEADROOM_GIB = 4.0
+# the four-card mode's serve paths over a mesh (``mesh_serve_phase``): the
+# arch at its full published widths and depth in bf16, its weights drawn
+# straight into their shards (``Model.init(..., mesh=)``); a batch of
+# ``batch`` prompts of ``prompt`` tokens prefilled by ``Model.prefill``
+# over the mesh (twice: first and steady), ``gen`` greedy steps of
+# ``make_serve_step(batch=, max_len=prompt + gen)``, then
+# ``make_prefill_step`` on ``prefill_rows`` x ``prompt`` (a warm-up call,
+# then ``calls``). mistral-large-123b (245 GB in bf16) fits only as a
+# quarter a card; mixtral's "L" ring of 4096 slots wraps in the greedy
+# steps, its 8 experts 2 a card
+MESH_SERVE = dict(batch=4, prompt=4096, gen=16, prefill_rows=2, calls=2,
+                  dtype="bfloat16", seed=0)
+MESH_SERVE_PATHS = {
+    "serve_mistral_large_mesh4": dict(MESH_SERVE, arch="mistral-large-123b",
+                                      mesh=(1, 4)),
+    "serve_mixtral_mesh4": dict(MESH_SERVE, arch="mixtral-8x7b",
+                                mesh=(1, 4)),
+}
+# the reference's long_500k over the (4, 1) mesh: gemma2-2b at its full
+# widths and depth in bf16, batch 1, caches of ``slots`` slots whose
+# sequence is cut over data (the "A" layers' 2^17 a card, the "L"
+# layers' 4096-slot window 1024 a card); keys and values drawn on each
+# card into its shard, the positions those of a prefilled prompt of
+# ``slots - empty`` tokens; ``steps`` greedy steps
+MESH_LONG = dict(arch="gemma2-2b", mesh=(4, 1), slots=1 << 19, empty=4,
+                 steps=8, dtype="bfloat16", seed=0)
+# beside each: the arch at 2 layers, full width, fp32 over the same mesh
+# against one card's ``mesh=None`` steps on every rank: a batch of the
+# path's prompts of ``prompt`` tokens, ``steps`` greedy steps (logits
+# within 1e-4 of max |logit|, tokens equal) and ``make_prefill_step``;
+# the long path over one cache of its ``slots`` slots, whole on the card
+# and cut over the ranks, ``_DECODE_CHUNK`` at ``chunk`` on both sides so
+# that both scan chunks (``long_steps`` steps within 1e-5)
+MESH_PARITY = dict(layers=2, prompt=256, steps=4, seed=1, chunk=1 << 16,
+                   long_steps=2)
 # phase 4's federated steps of those families, at their test
 # configurations (``_family_test_model``), in their configs' strategies;
 # paligemma in both, so the fused step cuts its text offset on the card
@@ -2929,7 +2968,8 @@ def telemetry_phase(torch, ops, dev, work: Path):
 
 
 # first match wins: cuDNN's implicit-GEMM convolutions also say "gemm"
-_GROUPS = (("port kernels", ("trust_stage_kernel", "weighted_agg_kernel",
+_GROUPS = (("collectives (NCCL)", ("nccl",)),
+           ("port kernels", ("trust_stage_kernel", "weighted_agg_kernel",
                              "topk_mask_kernel", "quantize_kernel",
                              "linear_scan_kernel")),
            ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
@@ -3280,7 +3320,7 @@ def mesh_steps_phase(torch, ops, dev, meshes, seq: int = 96,
     from repro_torch.configs.base import FLConfig
     from repro_torch.optim import sgd
     from repro_torch.train import ClientMesh
-    from repro_torch.train.steps import clients_group
+    from repro_torch.sharding import clients_group
 
     rank = dist.get_rank()
     alone = dist.new_group([rank], use_local_synchronization=True)
@@ -3322,10 +3362,378 @@ def mesh_steps_phase(torch, ops, dev, meshes, seq: int = 96,
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving over a device mesh
+
+def _local_gib(tree) -> float:
+    """GiB this rank stores of a tree of DTensors (or tensors)."""
+    from repro_torch.models.parallel import local_tree
+    from repro_torch.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size()
+               for x in tree_leaves(local_tree(tree))) / 2 ** 30
+
+
+def _outside_gib(torch, dev) -> float:
+    """GiB of the card in use outside PyTorch's caching allocator (the
+    CUDA context, NCCL's communicators)."""
+    free, total = torch.cuda.mem_get_info(dev)
+    return (total - free - torch.cuda.memory_reserved(dev)) / 2 ** 30
+
+
+def _whole(x):
+    """A DTensor's whole value (a mesh step's logits), else ``x``."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _rel_max(torch, got, want) -> float:
+    """max |got - want| / max |want|, in fp32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _greedy(torch, model, params, tokens, step, steps: int, max_len: int):
+    """``Model.prefill`` of ``tokens``, then ``steps`` greedy steps of
+    ``step`` from the prompt's last token: (prefill logits, [step
+    logits], [tokens]), the logits whole."""
+    t = tokens.shape[1]
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    out = [_whole(logits)]
+    tok, toks = tokens[:, -1], []
+    for i in range(steps):
+        lg, cache = step(params, cache, tok, t + i)
+        lg = _whole(lg)
+        out.append(lg)
+        tok = torch.argmax(lg, dim=-1)
+        toks.append(tok.tolist())
+    return out, toks
+
+
+def _trace_summary(trace) -> dict:
+    """A traced decode's figures a step: the device's idle share, busy and
+    wall ms, kernels, device ms by kernel group (NCCL's collectives
+    apart: their kernels wait on the device for the other ranks) and the
+    top kernels."""
+    return dict(decode_idle_share=trace["idle_share"],
+                decode_busy_ms=trace["busy_ms"],
+                decode_wall_ms=trace["wall_ms"],
+                decode_kernels=trace["kernels"],
+                decode_group_ms=trace["group_ms"],
+                decode_top=trace["top"][:8])
+
+
+def mesh_parity_phase(torch, dev, mesh, arch: str, batch: int):
+    """``arch`` at full width, ``MESH_PARITY["layers"]`` layers, fp32: the
+    prefill and greedy steps over ``mesh`` (weights drawn into their
+    shards) against one card's ``mesh=None`` steps on this rank (logits
+    within 1e-4 of max |logit|, tokens equal), and ``make_prefill_step``
+    both ways."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    mp = MESH_PARITY
+    model = Model(replace(get_arch(arch), num_layers=mp["layers"]))
+    cfg = model.cfg
+    check_memory_free(torch, f"{arch} parity")
+    whole = model.init(mp["seed"], device=dev, dtype="float32")
+    params = model.init(mp["seed"], device=dev, dtype="float32", mesh=mesh)
+    gen = torch.Generator().manual_seed(mp["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (batch, mp["prompt"]),
+                           generator=gen).to(dev)
+    max_len = mp["prompt"] + mp["steps"]
+    one, one_toks = _greedy(torch, model, whole, tokens,
+                            make_serve_step(model)[0], mp["steps"], max_len)
+    got, got_toks = _greedy(
+        torch, model, params, tokens,
+        make_serve_step(model, mesh, batch=batch, max_len=max_len)[0],
+        mp["steps"], max_len)
+    errs = [_rel_max(torch, g, w) for g, w in zip(got, one)]
+    pre_err = _rel_max(
+        torch, _whole(make_prefill_step(model, mesh, batch=batch)(
+            params, {"tokens": tokens})),
+        make_prefill_step(model)(whole, {"tokens": tokens}))
+    check(max(errs + [pre_err]) <= 1e-4,
+          f"{arch} over the mesh: logits {max(errs):.3e}, prefill step "
+          f"{pre_err:.3e} of max |logit| from one card's")
+    check(got_toks == one_toks, f"{arch} over the mesh: tokens {got_toks} "
+          f"against one card's {one_toks}")
+    del whole, params
+    torch.cuda.empty_cache()
+    return dict(layers=mp["layers"], prompt=mp["prompt"], batch=batch,
+                logits_rel_max=errs, prefill_step_rel_max=pre_err,
+                tokens=got_toks)
+
+
+def mesh_serve_phase(torch, dev, mesh, path: str):
+    """``MESH_SERVE_PATHS[path]`` over ``mesh`` (see there): the weights
+    held as the config counts them, every logit finite and every token in
+    the vocabulary; init s, prefill ms first and steady, decode ms a step
+    and tokens/s, ``make_prefill_step`` ms, peak and stored GiB a card,
+    the memory outside the allocator, the collectives a decode step and
+    the device's idle share of two traced decode steps."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import parallel
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_leaves
+
+    sv = MESH_SERVE_PATHS[path]
+    cfg = get_arch(sv["arch"])
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    before_gib = check_memory_free(torch, path)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(sv["seed"], device=dev, dtype=sv["dtype"], mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = sum(x.numel() for x in tree_leaves(params))
+    check(held == cfg.param_count() + cfg.d_model,
+          f"{path}: {held} weights, expected "
+          f"{cfg.param_count() + cfg.d_model}")
+    stored_gib = _local_gib(params)
+    b, t, gen = sv["batch"], sv["prompt"], sv["gen"]
+    max_len = t + gen
+    g = torch.Generator().manual_seed(sv["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g).to(dev)
+    prefill_ms, cache = [], None
+    for _ in range(2):
+        cache = None                  # the first's cache goes first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+        logits = _whole(logits)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(logits).all()), f"{path}: prefill logits")
+    cache_gib = _local_gib(cache)
+    step, _ = make_serve_step(model, mesh, batch=b, max_len=max_len)
+    tok = torch.argmax(logits, dim=-1)
+    ms, host_ms, toks, coll = [], [], [], []
+    for i in range(gen):
+        parallel.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, tok, t + i)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        lg = _whole(lg)
+        tok = torch.argmax(lg, dim=-1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append(parallel.collective_counts())
+        check(bool(torch.isfinite(lg).all()), f"{path}: step {i} logits")
+        toks.append(tok.tolist())
+    check(all(0 <= x < cfg.vocab_size for row in toks for x in row),
+          f"{path}: tokens {toks}")
+    state = {"tok": tok, "cache": cache}
+
+    def decode():
+        for i in range(2):
+            lg, state["cache"] = step(params, state["cache"], state["tok"],
+                                      t + gen - 2 + i)
+            state["tok"] = torch.argmax(_whole(lg), dim=-1)
+    trace = _trace(torch, None, f"{path}_decode", decode, 2, "decode step",
+                   host=False)
+    del cache, state
+    pre = make_prefill_step(model, mesh, batch=sv["prefill_rows"])
+    rows = {"tokens": tokens[:sv["prefill_rows"]]}
+    pre_ms = []
+    for _ in range(1 + sv["calls"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _whole(pre(params, rows))
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(out).all())
+          and tuple(out.shape) == (sv["prefill_rows"], cfg.vocab_size),
+          f"{path}: make_prefill_step logits {tuple(out.shape)}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    outside_gib = _outside_gib(torch, dev)
+    del params, out
+    torch.cuda.empty_cache()
+    return dict(
+        arch=sv["arch"], mesh=sv["mesh"], layers=cfg.num_layers,
+        dtype=sv["dtype"], n_params=held, allocated_before_gib=before_gib,
+        init_s=init_s, stored_gib=stored_gib, cache_gib=cache_gib,
+        prefill_batch=b, prompt=t, prefill_ms_first=prefill_ms[0],
+        prefill_ms_steady=prefill_ms[1], decode_steps=gen,
+        step_ms=statistics.median(ms), step_ms_all=ms,
+        step_host_ms=statistics.median(host_ms),
+        decode_tokens_per_s=b * gen / (sum(ms) / 1e3),
+        collectives_per_step=coll[-1],
+        prefill_step_rows=sv["prefill_rows"],
+        prefill_step_ms_first=pre_ms[0],
+        prefill_step_ms_steady=statistics.median(pre_ms[1:]),
+        peak_gib=peak_gib, outside_gib=outside_gib,
+        **_trace_summary(trace), tokens=toks)
+
+
+def _long_cache(torch, model, params, slots: int, gen, n_prompt: int):
+    """``model.init_cache`` of ``slots`` slots at batch 1, its keys and
+    values drawn from ``gen`` into this rank's storage and its positions
+    those of a prefilled prompt of ``n_prompt`` tokens."""
+    from repro_torch.models.parallel import local_tree
+
+    cache = model.init_cache(params, 1, slots)
+    for lc in local_tree(cache)["layers"]:
+        c = lc["attn"]
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+        n = c["pos"].shape[0]
+        p = torch.arange(max(n_prompt - n, 0), n_prompt,
+                         device=c["pos"].device)
+        c["pos"].fill_(-1)
+        c["pos"][p % n] = p.to(torch.int32)
+    return cache
+
+
+def mesh_long_parity(torch, dev, mesh):
+    """``MESH_LONG``'s arch at 2 layers ("L", "A"), full width, fp32: one
+    cache of ``slots`` slots drawn whole on the card (the same on every
+    rank), then cut to each rank's sequence range; ``long_steps`` greedy
+    steps over the mesh against one card's chunked decode of the whole
+    cache, ``_DECODE_CHUNK`` at ``MESH_PARITY["chunk"]`` on both sides:
+    logits within 1e-5 of max |logit|, tokens equal."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import make_serve_step
+    from repro_torch.sharding import cache_specs, shard_tree
+
+    ld, mp = MESH_LONG, MESH_PARITY
+    model = Model(replace(get_arch(ld["arch"]), num_layers=2))
+    check_memory_free(torch, "long parity")
+    whole = model.init(mp["seed"], device=dev, dtype="float32")
+    params = model.init(mp["seed"], device=dev, dtype="float32", mesh=mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(mp["seed"])
+    n_prompt = ld["slots"] - ld["empty"]
+    cache1 = _long_cache(torch, model, whole, ld["slots"], gen, n_prompt)
+    cachem = shard_tree(cache1, cache_specs(cache1, model.cfg, mesh, 1), mesh)
+    step1 = make_serve_step(model)[0]
+    stepm = make_serve_step(model, mesh, batch=1, max_len=ld["slots"])[0]
+    tok1 = tokm = torch.zeros((1,), dtype=torch.long, device=dev)
+    real = attention._DECODE_CHUNK
+    attention._DECODE_CHUNK = mp["chunk"]
+    errs, toks = [], []
+    try:
+        for i in range(mp["long_steps"]):
+            lg1, cache1 = step1(whole, cache1, tok1, n_prompt + i)
+            lgm, cachem = stepm(params, cachem, tokm, n_prompt + i)
+            lgm = _whole(lgm)
+            errs.append(_rel_max(torch, lgm, lg1))
+            tok1, tokm = torch.argmax(lg1, -1), torch.argmax(lgm, -1)
+            toks.append((int(tok1), int(tokm)))
+    finally:
+        attention._DECODE_CHUNK = real
+    check(max(errs) <= 1e-5, f"long parity: logits {max(errs):.3e} of max "
+          f"|logit| from one card's chunked decode")
+    check(all(a == b for a, b in toks), f"long parity: tokens {toks}")
+    del whole, params, cache1, cachem
+    torch.cuda.empty_cache()
+    return dict(layers=2, slots=ld["slots"], chunk=mp["chunk"],
+                logits_rel_max=errs, tokens=[a for a, _ in toks])
+
+
+def mesh_long_phase(torch, dev, mesh):
+    """``MESH_LONG`` over ``mesh`` (see there): every logit finite, every
+    token in the vocabulary; step ms and tokens/s, peak and stored GiB a
+    card (weights, the cache's shard), the memory outside the allocator,
+    the collectives a step and the idle share of two traced steps."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import parallel
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import make_serve_step
+
+    ld = MESH_LONG
+    cfg = get_arch(ld["arch"])
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    before_gib = check_memory_free(torch, "long_decode_gemma2_mesh4")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(ld["seed"], device=dev, dtype=ld["dtype"], mesh=mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ld["seed"] * 1000 + dist.get_rank())
+    n_prompt = ld["slots"] - ld["empty"]
+    cache = _long_cache(torch, model, params, ld["slots"], gen, n_prompt)
+    step, _ = make_serve_step(model, mesh, batch=1, max_len=ld["slots"])
+    tok = torch.zeros((1,), dtype=torch.long, device=dev)
+    ms, host_ms, toks, coll = [], [], [], []
+    for i in range(ld["steps"]):
+        parallel.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, tok, n_prompt + i)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        lg = _whole(lg)
+        tok = torch.argmax(lg, dim=-1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append(parallel.collective_counts())
+        check(bool(torch.isfinite(lg).all()), f"long mesh: step {i} logits")
+        toks.append(int(tok))
+    check(all(0 <= x < cfg.vocab_size for x in toks), f"long mesh: {toks}")
+    state = {"tok": tok, "cache": cache}
+
+    def decode():
+        for i in range(2):
+            lg, state["cache"] = step(params, state["cache"], state["tok"],
+                                      n_prompt + i)
+            state["tok"] = torch.argmax(_whole(lg), dim=-1)
+    trace = _trace(torch, None, "long_decode_gemma2_mesh4", decode, 2,
+                   "decode step", host=False)
+    rec = dict(arch=ld["arch"], mesh=ld["mesh"], layers=cfg.num_layers,
+               slots=ld["slots"], slots_a_card=ld["slots"] // ld["mesh"][0],
+               allocated_before_gib=before_gib,
+               stored_gib=_local_gib(params), cache_gib=_local_gib(cache),
+               step_ms=statistics.median(ms), step_ms_all=ms,
+               step_host_ms=statistics.median(host_ms),
+               decode_tokens_per_s=len(ms) / (sum(ms) / 1e3),
+               collectives_per_step=coll[-1],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               outside_gib=_outside_gib(torch, dev),
+               **_trace_summary(trace), tokens=toks)
+    del params, cache, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_serve_paths(torch, ops, dev, meshes, record) -> None:
+    """The serve paths over a mesh, each after its 2-layer fp32 parity
+    check, every kernel never launched, recorded as they end."""
+    for path, sv in MESH_SERVE_PATHS.items():
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        mesh = meshes[sv["mesh"]]
+        got = {"parity": mesh_parity_phase(torch, dev, mesh, sv["arch"],
+                                           sv["batch"])}
+        got.update(mesh_serve_phase(torch, dev, mesh, path))
+        counts = ops.launch_counts()
+        check(all(v == 0 for v in counts.values()),
+              f"{path}: launches {counts}")
+        record(path, got, t0)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    mesh = meshes[MESH_LONG["mesh"]]
+    got = {"parity": mesh_long_parity(torch, dev, mesh)}
+    got.update(mesh_long_phase(torch, dev, mesh))
+    counts = ops.launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"long_decode_gemma2_mesh4: launches {counts}")
+    record("long_decode_gemma2_mesh4", got, t0)
+
+
 def mesh_main() -> int:
     """``torchrun --nproc-per-node 4 chip_smoke.py --mesh``: the four-card
     checks alone, one card a rank, NCCL (and gloo for host tensors):
-    :func:`mesh_steps_phase`; the shard paths at world 4 (their knobs with
+    :func:`mesh_serve_paths`; :func:`mesh_steps_phase`; the shard paths at world 4 (their knobs with
     32 clients a cloud, so 96 clients tile 4 ranks) and at world 3 on
     ranks 0–2 (the paper's 90), each against ``Engine.step`` on every
     rank, with each rank's kernel launches; ``MESH4_TRAIN`` at 2 and 3
@@ -3378,9 +3786,13 @@ def mesh_main() -> int:
         # one live mesh a shape for the whole run: each mesh's groups,
         # and their NCCL communicators, are made once
         meshes = {shape: live_mesh(MeshShape(("data", "model"), shape), dev)
-                  for shape in ((4, 1), (2, 2))}
+                  for shape in ((4, 1), (2, 2), (1, 4))}
+        # serving first: mistral-large's quarter a card leaves the least
+        # room beside the communicators of the phases after it
+        mesh_serve_paths(torch, ops, dev, meshes, record)
         t0 = time.perf_counter()
-        record("steps", mesh_steps_phase(torch, ops, dev, meshes), t0)
+        record("steps", mesh_steps_phase(
+            torch, ops, dev, {s: meshes[s] for s in ((4, 1), (2, 2))}), t0)
         for path in SHARD_PATHS:
             t0 = time.perf_counter()
             record(f"{path}_world4", shard_engine_phase(

@@ -7,7 +7,7 @@ position-tagged KV-cache decode path and encoder-decoder cross-attention
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +42,98 @@ def _qkv(params, xq: Tensor, xkv: Tensor, cfg: ModelConfig):
     return q, k, v
 
 
+class Heads(NamedTuple):
+    """One self-attention's projections after RoPE: q (B, T, Hq, hd) of
+    the heads this rank computes, k / v (B, T, KVq, hd) of the KV heads
+    those read, kc / vc those the cache stores (every KV head, or this
+    rank's where the cache is cut over ``model``), and whether ``wo``'s
+    product is a partial sum over ``model``."""
+    q: Tensor
+    k: Tensor
+    v: Tensor
+    kc: Tensor
+    vc: Tensor
+    partial: bool
+    kv_at: int = 0        # k's first KV head among kc's
+
+
+def _kv_part(params, name: str, x: Tensor, tp) -> Tuple[Tensor, bool]:
+    """(``name``'s product, whether it holds this rank's KV heads only):
+    column-parallel over KV heads gives this rank's heads; row-parallel
+    over D (the heads do not divide ``model``), the partial products
+    summed over ``model``, every head; a whole leaf, every head."""
+    w = params[name]
+    d = tp.dim(name)
+    if d is None or d == 1:
+        return torch.einsum("bsd,dhk->bshk", x, w), d == 1
+    if d == 0:
+        n = w.shape[0]
+        xs = x[..., tp.model.rank * n:(tp.model.rank + 1) * n]
+        return tp.psum(torch.einsum("bsd,dhk->bshk", xs, w)), False
+    raise NotImplementedError(f"attention: {name} cut over 'model' on dim "
+                              f"{d} (head_dim) is not computed")
+
+
+def _heads(params, x: Tensor, cfg: ModelConfig, positions: Tensor,
+           tp=None) -> Heads:
+    """Self-attention's projections of x (B, T, D) at ``positions``, with
+    RoPE. Over a mesh, q is this rank's heads (``wq`` column-parallel
+    over heads, ``wo`` row-parallel; both whole: every head); k / v for
+    the attention are the KV heads of those, kc / vc the heads the
+    cache holds. A placement not computed here raises, naming the leaf
+    and the dim."""
+    if tp is None or tp.model.size == 1:
+        q, k, v = _qkv(params, x, x, cfg)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        return Heads(q, k, v, k, v, False)
+    qd, od = tp.dim("wq"), tp.dim("wo")
+    if (qd, od) not in ((None, None), (1, 0)):
+        bad, d = ("wq", qd) if qd != 1 else ("wo", od)
+        raise NotImplementedError(
+            f"attention: {bad} cut over 'model' on dim {d}; the mesh steps "
+            f"compute wq cut on its heads (dim 1) with wo on its (dim 0), "
+            f"or both whole")
+    kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    m = tp.model
+    q = apply_rope(torch.einsum("btd,dhk->bthk", x, params["wq"]),
+                   positions, cfg.rope_theta)
+    hl = q.shape[2]
+    h0 = m.rank * hl if qd == 1 else 0
+    if hl % g == 0:
+        kv0, kvn = h0 // g, hl // g
+    elif g % hl == 0:
+        kv0, kvn = h0 // g, 1
+    else:
+        raise NotImplementedError(
+            f"attention: wq's {hl} heads a rank split the KV groups of {g} "
+            f"heads unevenly")
+    cut = None if tp.cspecs is None else tp.cache_dim("k", "model")
+    if cut not in (None, 2):
+        raise NotImplementedError(
+            f"attention: the cache's k cut over 'model' on dim {cut} "
+            f"(head_dim: the KV heads do not divide 'model') is not "
+            f"computed")
+    (k, local), (v, v_local) = (_kv_part(params, n, x, tp)
+                                for n in ("wk", "wv"))
+    if local != v_local or (local and qd is None):
+        raise NotImplementedError(
+            f"attention: wk / wv cut over 'model' on dims {tp.dim('wk')} / "
+            f"{tp.dim('wv')} beside wq's {qd}")
+    k = apply_rope(k, positions, cfg.rope_theta)
+    kvm = kv // m.size
+    if local:                       # this rank's KV heads: kv0.. kv0 + kvn
+        kc, vc = k, v
+        if cut != 2:                # the cache holds every KV head
+            kc, vc = tp.gather(torch.stack((k, v)), 3).unbind(0)
+    else:
+        kc, vc = k, v
+        if cut == 2:
+            kc, vc = (t[:, :, m.rank * kvm:(m.rank + 1) * kvm] for t in (k, v))
+        k, v = k[:, :, kv0:kv0 + kvn], v[:, :, kv0:kv0 + kvn]
+    return Heads(q, k, v, kc, vc, qd == 1, 0 if cut == 2 else kv0)
+
+
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
           attn_cap: float) -> Tensor:
     """q: (B,T,KV,G,hd) k/v: (B,S,KV,hd) mask: broadcastable (B,1,1,T,S),
@@ -74,11 +166,13 @@ def _band_mask(qpos: Tensor, kpos: Tensor, layer_type: str,
 
 
 def _attn_seq(params, x: Tensor, cfg: ModelConfig, layer_type: str,
-              q_chunk: int, prefix_len: int = 0
+              q_chunk: int, prefix_len: int = 0, tp=None
               ) -> Tuple[Tensor, Tensor, Tensor]:
     """Full-sequence self-attention over positions 0..T-1 (the only
     positions the reference's ``forward_hidden`` passes), the first
-    ``prefix_len`` bidirectional; returns (y, k, v) with k after RoPE.
+    ``prefix_len`` bidirectional; returns (y, k, v) with k after RoPE
+    (over a mesh, k and v hold the heads the cache stores: see
+    :func:`_heads`).
 
     Loops over query chunks so the score block held live is
     (B, H, q_chunk, S); for "L"/"C" layers keys are sliced to the
@@ -86,12 +180,11 @@ def _attn_seq(params, x: Tensor, cfg: ModelConfig, layer_type: str,
     padded queries of a ragged last chunk carry position -1, which the
     prefix term lets through, so the mask drops them after it."""
     b, t, _ = x.shape
-    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     positions = torch.arange(t, device=x.device)
-    q, k, v = _qkv(params, x, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    q = q.reshape(b, t, kvh, g, -1)
+    hs = _heads(params, x, cfg, positions, tp)
+    q, k, v = hs.q, hs.k, hs.v
+    kvh = k.shape[2]
+    q = q.reshape(b, t, kvh, hs.q.shape[2] // kvh, -1)
 
     q_chunk = min(q_chunk, t)
     pad = (-t) % q_chunk                  # pad queries to a multiple
@@ -125,17 +218,21 @@ def _attn_seq(params, x: Tensor, cfg: ModelConfig, layer_type: str,
         m = m & (qp[:, None] >= 0)
         outs.append(_sdpa(qi, ki, vi, m[None, None, None], cfg.attn_softcap))
     out = torch.cat(outs, dim=1).reshape(b, n_blocks * q_chunk,
-                                         cfg.n_heads, -1)[:, :t]
-    return torch.einsum("bthk,hkd->btd", out, params["wo"]), k, v
+                                         hs.q.shape[2], -1)[:, :t]
+    y = torch.einsum("bthk,hkd->btd", out, params["wo"])
+    return (tp.psum(y) if hs.partial else y), hs.kc, hs.vc
 
 
 def attn_forward(params, x: Tensor, *, cfg: ModelConfig, layer_type: str,
-                 prefix_len: int = 0, q_chunk: int = 1024) -> Tensor:
+                 prefix_len: int = 0, q_chunk: int = 1024, tp=None
+                 ) -> Tensor:
     """Full-sequence self-attention (train / prefill) over positions
     0..T-1, the first ``prefix_len`` bidirectional. x: (B, T, D). The
     reference's ``positions`` argument is always arange(T) on its paths,
-    so the port has none."""
-    return _attn_seq(params, x, cfg, layer_type, q_chunk, prefix_len)[0]
+    so the port has none. ``tp``: this layer's place on a mesh
+    (``models/parallel.py``), or ``None``."""
+    return _attn_seq(params, x, cfg, layer_type, q_chunk, prefix_len,
+                     tp)[0]
 
 
 def cross_attn_forward(params, x: Tensor, memory: Tensor, *,
@@ -152,23 +249,46 @@ def cross_attn_forward(params, x: Tensor, memory: Tensor, *,
 
 
 def attn_prefill(params, x: Tensor, *, cfg: ModelConfig, layer_type: str,
-                 max_len: int, q_chunk: int = 1024
+                 max_len: int, q_chunk: int = 1024, tp=None
                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """:func:`attn_forward` over positions 0..T-1 that also returns the
     decode cache: k (after RoPE) and v of the last min(T, cache_len)
     positions p at slot p % cache_len, ``pos`` = p there and -1 in the
-    empty slots — what T decode steps from an empty cache leave."""
-    y, k, v = _attn_seq(params, x, cfg, layer_type, q_chunk)
+    empty slots — what T decode steps from an empty cache leave. Over a
+    mesh, this rank's shard of it (``tp.cspecs``): its rows, its KV heads
+    where the cache is cut over ``model``, its slot range where the
+    sequence is cut over the data axes (``pos`` whole)."""
+    y, k, v = _attn_seq(params, x, cfg, layer_type, q_chunk, tp=tp)
     b, t = x.shape[:2]
-    cache = init_attn_cache(cfg, layer_type, b, max_len, dtype=k.dtype,
-                            device=x.device)
-    s = cache["k"].shape[1]
+    s = cache_len(cfg, layer_type, max_len)
+    lo, n = _slot_range(s, tp)
+    if tp is None:
+        cache = init_attn_cache(cfg, layer_type, b, max_len, dtype=k.dtype,
+                                device=x.device)
+    else:
+        cache = {"k": k.new_zeros((b, n) + tuple(k.shape[2:])),
+                 "v": v.new_zeros((b, n) + tuple(v.shape[2:])),
+                 "pos": torch.full((s,), -1, dtype=torch.int32,
+                                   device=x.device)}
     p = torch.arange(max(t - s, 0), t, device=x.device)
     slots = p % s
+    cache["pos"][slots] = p.to(torch.int32)
+    if n < s:                                 # this rank's slots only
+        mine = (slots >= lo) & (slots < lo + n)
+        p, slots = p[mine], slots[mine] - lo
     cache["k"][:, slots] = k[:, p]
     cache["v"][:, slots] = v[:, p]
-    cache["pos"][slots] = p.to(torch.int32)
     return y, cache
+
+
+def _slot_range(s: int, tp) -> Tuple[int, int]:
+    """(first slot, slots) of a cache of ``s`` slots this rank holds: all
+    of them, or a contiguous range where the cache's sequence is cut over
+    the data axes (distributed-cache decode)."""
+    if tp is None or tp.cspecs is None or tp.cache_dim("k", "data") != 1:
+        return 0, s
+    n = s // tp.data.size
+    return tp.data.rank * n, n
 
 
 # ---------------------------------------------------------------------------
@@ -196,24 +316,30 @@ def init_attn_cache(cfg: ModelConfig, layer_type: str, batch: int,
 
 
 def attn_decode(params, x: Tensor, cache: Dict[str, Tensor], index: int, *,
-                cfg: ModelConfig, layer_type: str
+                cfg: ModelConfig, layer_type: str, tp=None
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token decode at absolute position ``index``; the cache slot is
     index mod the cache length. Writes the new k, v and position into
-    ``cache`` in place (no copy of the cache a step) and returns it."""
+    ``cache`` in place (no copy of the cache a step) and returns it.
+
+    Over a mesh (``tp``), this rank's heads attend over its shard of the
+    cache: where the sequence is cut over the data axes, only the rank
+    holding the slot writes it, and the ranks' partial softmax triples
+    (max, denominator, output) in fp32 are combined over the data axes."""
     b = x.shape[0]
-    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    s = cache["k"].shape[1]
-    q, k_new, v_new = _qkv(params, x, x, cfg)
-    pos = torch.full((1, 1), index, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta).reshape(b, 1, kvh, g, -1)
-    k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    s = cache["pos"].shape[0]
+    hs = _heads(params, x, cfg, torch.full((1, 1), index, device=x.device),
+                tp)
+    kvn = hs.k.shape[2]
+    q = hs.q.reshape(b, 1, kvn, hs.q.shape[2] // kvn, -1)
 
     slot = index % s
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+    lo, n = _slot_range(s, tp)
+    if lo <= slot < lo + n:
+        cache["k"][:, slot - lo] = hs.kc[:, 0]
+        cache["v"][:, slot - lo] = hs.vc[:, 0]
     cache["pos"][slot] = index
-    cpos = cache["pos"]
+    cpos = cache["pos"][lo:lo + n]
 
     if layer_type == "L":
         lower = index - cfg.window + 1
@@ -221,10 +347,23 @@ def attn_decode(params, x: Tensor, cache: Dict[str, Tensor], index: int, *,
         lower = (index // cfg.chunk) * cfg.chunk
     else:
         lower = 0
-    valid = (cpos >= lower) & (cpos <= index) & (cpos >= 0)       # (s,)
-    out = _decode_attn(q, cache["k"], cache["v"], valid, cfg.attn_softcap)
-    out = out.reshape(b, 1, cfg.n_heads, -1)
-    return torch.einsum("bthk,hkd->btd", out, params["wo"]), cache
+    valid = (cpos >= lower) & (cpos <= index) & (cpos >= 0)       # (n,)
+    ck, cv = cache["k"], cache["v"]
+    if kvn != ck.shape[2]:                    # this rank's heads' view
+        ck = ck[:, :, hs.kv_at:hs.kv_at + kvn]
+        cv = cv[:, :, hs.kv_at:hs.kv_at + kvn]
+    if n == s:
+        out = _decode_attn(q, ck, cv, valid, cfg.attn_softcap)
+    else:
+        m, l, o = _decode_partial(q, ck, cv, valid, cfg.attn_softcap)
+        mg = tp.dmax(m.clone())
+        corr = torch.exp(m - mg)
+        l = tp.dsum(l * corr)
+        o = tp.dsum(o * corr[..., None])
+        out = _finish(o, l, q.dtype)
+    out = out.reshape(b, 1, hs.q.shape[2], -1)
+    y = torch.einsum("bthk,hkd->btd", out, params["wo"])
+    return (tp.psum(y) if hs.partial else y), cache
 
 
 def _decode_attn(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
@@ -233,19 +372,29 @@ def _decode_attn(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
     (B,S,KV,hd); valid: (S,). Returns (B,1,KV,G,hd).
 
     A cache of more than ``_DECODE_CHUNK`` slots is scanned in chunks of
-    that many with a running (max, denominator, out) triple in fp32, so
-    the live scores are (B, KV, G, 1, chunk) instead of (..., S)
-    (``repro/models/attention.py:207-256``). The chunks are views of the
+    that many (:func:`_decode_partial`), so the live scores are
+    (B, KV, G, 1, chunk) instead of (..., S)
+    (``repro/models/attention.py:207-256``)."""
+    if k.shape[1] <= _DECODE_CHUNK:
+        return _sdpa(q, k, v, valid[None, None, None, None, :], attn_cap)
+    m, l, o = _decode_partial(q, k, v, valid, attn_cap)
+    return _finish(o, l, q.dtype)
+
+
+def _decode_partial(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
+                    attn_cap: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """The running (max, denominator, output) triple in fp32 of one-token
+    attention over the slots of k / v, ``_DECODE_CHUNK`` at a time:
+    (B,KV,G,1), (B,KV,G,1), (B,KV,G,1,hd). The chunks are views of the
     cache and the last one is ragged: the reference pads k and v to whole
     chunks, but a padded slot is invalid and adds exactly 0 once any slot
     is valid (``attn_decode``'s own slot always is), so the copy is left
     out. A wholly invalid chunk before the first valid one adds exp(0)
     terms that the next valid chunk's correction exp(-1e30 - m) = 0
-    wipes, as in the reference."""
+    wipes, as in the reference; so does a rank's wholly invalid range
+    when the ranks' triples are combined."""
     s = k.shape[1]
     c = _DECODE_CHUNK
-    if s <= c:
-        return _sdpa(q, k, v, valid[None, None, None, None, :], attn_cap)
     b, _, kvh, hd = k.shape
     g = q.shape[3]
     hd_scale = 1.0 / math.sqrt(hd)
@@ -265,9 +414,13 @@ def _decode_attn(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
         o = o * corr[..., None] + torch.einsum(
             "bkgts,bskh->bkgth", p.to(q.dtype), vi).to(torch.float32)
         m = m_new
+    return m, l, o
+
+
+def _finish(o: Tensor, l: Tensor, dtype) -> Tensor:
+    """o / l of a triple, (B,KV,G,1,hd) -> (B,1,KV,G,hd) in ``dtype``."""
     out = o / torch.clamp(l[..., None], min=1e-30)
-    # (B,KV,G,1,hd) -> (B,1,KV,G,hd)
-    return torch.movedim(out, 3, 1).to(q.dtype)
+    return torch.movedim(out, 3, 1).to(dtype)
 
 
 def init_cross_cache(params, memory: Tensor, cfg: ModelConfig

@@ -59,7 +59,7 @@ def _norm(x: Tensor, scale: Tensor, cfg: ModelConfig) -> Tensor:
 
 def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
                is_moe: bool, max_len: Optional[int], prefix_len: int = 0,
-               memory: Optional[Tensor] = None
+               memory: Optional[Tensor] = None, tp=None
                ) -> Tuple[Tensor, Tensor, Optional[Params]]:
     """Full-sequence layer over positions 0..T-1, the first
     ``prefix_len`` attending both ways: (x, aux_loss, cache); with
@@ -69,19 +69,21 @@ def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
     one group (the reference's forward). A layer with ``cross`` attends
     to ``memory`` after its mixer when memory is given (the reference's
     forward skips it otherwise), and its cache's ``cross`` holds
-    memory's keys and values."""
+    memory's keys and values. ``tp``: the layer's place on a mesh
+    (``models/parallel.py``), or ``None``."""
     cache: Optional[Params] = None if max_len is None else {}
+    mtp, ftp = _sub_tp(tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm(x, p["norm1"], cfg)
     if layer_type in ATTN_BLOCKS:
         if max_len is None:
             m = attn.attn_forward(p["mixer"], h, cfg=cfg,
                                   layer_type=layer_type,
-                                  prefix_len=prefix_len)
+                                  prefix_len=prefix_len, tp=mtp)
         else:
             m, cache["attn"] = attn.attn_prefill(
                 p["mixer"], h, cfg=cfg, layer_type=layer_type,
-                max_len=max_len)
+                max_len=max_len, tp=mtp)
     else:
         prefill = (rglru_mod.rglru_prefill if layer_type == "R"
                    else rwkv_mod.rwkv6_prefill)
@@ -103,28 +105,44 @@ def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
             cache["ffn_prev"] = h2[:, -1]
     elif is_moe:
         group = None if max_len is None else x.shape[0]
-        f, aux = moe_mod.moe_forward(p["ffn"], h2, cfg, group=group)
+        f, aux = moe_mod.moe_forward(p["ffn"], h2, cfg, group=group,
+                                     **_on_mesh(ftp))
     else:
-        f = mlp_mod.mlp_forward(p["ffn"], h2, cfg)
+        f = mlp_mod.mlp_forward(p["ffn"], h2, cfg, **_on_mesh(ftp))
     return x + f, aux, cache
+
+
+def _sub_tp(tp):
+    """(the mixer's, the FFN's) places on a mesh, or (None, None)."""
+    if tp is None:
+        return None, None
+    return tp.sub("mixer", "attn"), tp.sub("ffn")
+
+
+def _on_mesh(tp) -> Dict[str, Any]:
+    """The FFN's ``tp`` keyword: none off a mesh, so the FFN functions are
+    called there as they always were."""
+    return {} if tp is None else {"tp": tp}
 
 
 def layer_forward(p: Params, x: Tensor, *, cfg: ModelConfig, layer_type: str,
                   is_moe: bool = False, prefix_len: int = 0,
-                  memory: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                  memory: Optional[Tensor] = None, tp=None
+                  ) -> Tuple[Tensor, Tensor]:
     """Full-sequence layer over positions 0..T-1, the first
     ``prefix_len`` bidirectional, cross-attending to ``memory`` where the
     layer has ``cross``. Returns (x, aux_loss) (aux is 0 but for an MoE
     FFN)."""
     check_layer(layer_type)
     out, aux, _ = _layer_seq(p, x, cfg, layer_type, is_moe, None,
-                             prefix_len, memory)
+                             prefix_len, memory, tp)
     return out, aux
 
 
 def layer_prefill(p: Params, x: Tensor, *, cfg: ModelConfig,
                   layer_type: str, max_len: int, is_moe: bool = False,
-                  memory: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
+                  memory: Optional[Tensor] = None, tp=None
+                  ) -> Tuple[Tensor, Params]:
     """:func:`layer_forward` over positions 0..T-1 that also returns the
     layer's decode cache, equal to what T decode steps from
     :func:`init_layer_cache` leave: for "R" the scan's last state and the
@@ -136,7 +154,7 @@ def layer_prefill(p: Params, x: Tensor, *, cfg: ModelConfig,
     steps do, with their capacity."""
     check_layer(layer_type)
     out, _, cache = _layer_seq(p, x, cfg, layer_type, is_moe, max_len,
-                               memory=memory)
+                               memory=memory, tp=tp)
     return out, cache
 
 
@@ -163,19 +181,21 @@ def init_layer_cache(cfg: ModelConfig, layer_type: str, batch: int,
 
 
 def layer_decode(p: Params, x: Tensor, cache: Params, index: int, *,
-                 cfg: ModelConfig, layer_type: str, is_moe: bool = False
-                 ) -> Tuple[Tensor, Params]:
+                 cfg: ModelConfig, layer_type: str, is_moe: bool = False,
+                 tp=None) -> Tuple[Tensor, Params]:
     """Single-token decode. x: (B, 1, D). Attention caches are updated in
     place (``attn.attn_decode``); a layer with ``cross`` attends to the
     cached encoder keys and values (which stay as they are); an MoE FFN
-    routes the B tokens as one group and drops its aux loss."""
+    routes the B tokens as one group and drops its aux loss. ``tp``: the
+    layer's place on a mesh, or ``None``."""
     check_layer(layer_type)
+    mtp, ftp = _sub_tp(tp)
     new_cache = dict(cache)
     h = _norm(x, p["norm1"], cfg)
     if layer_type in ATTN_BLOCKS:
         m, new_cache["attn"] = attn.attn_decode(
             p["mixer"], h, cache["attn"], index, cfg=cfg,
-            layer_type=layer_type)
+            layer_type=layer_type, tp=mtp)
     elif layer_type == "R":
         m, new_cache["rec"] = rglru_mod.rglru_decode(p["mixer"], h,
                                                      cache["rec"], cfg)
@@ -193,7 +213,7 @@ def layer_decode(p: Params, x: Tensor, cache: Params, index: int, *,
                                         prev=cache["ffn_prev"])
         new_cache["ffn_prev"] = h2[:, 0]
     elif is_moe:
-        f, _ = moe_mod.moe_forward(p["ffn"], h2, cfg)
+        f, _ = moe_mod.moe_forward(p["ffn"], h2, cfg, **_on_mesh(ftp))
     else:
-        f = mlp_mod.mlp_forward(p["ffn"], h2, cfg)
+        f = mlp_mod.mlp_forward(p["ffn"], h2, cfg, **_on_mesh(ftp))
     return x + f, new_cache

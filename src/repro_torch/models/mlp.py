@@ -23,13 +23,36 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
             "w_down": dense_init(gen, (f, d), dtype=dtype)}
 
 
-def mlp_forward(params, x: Tensor, cfg: ModelConfig) -> Tensor:
+def mlp_forward(params, x: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
+    """The FFN of x (..., D). Over a mesh (``tp``), ``w_gate`` / ``w_up``
+    cut on d_ff are column-parallel and ``w_down`` cut on d_ff
+    row-parallel, its partial products summed over ``model``; whole
+    leaves compute whole. Another placement raises, naming the leaf."""
     if cfg.ffn_act in ("swiglu", "geglu"):
         act = act_fn("silu" if cfg.ffn_act == "swiglu" else "gelu")
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = gelu(x @ params["w_up"])
-    return h @ params["w_down"]
+    if tp is None or not _cut_on_ff(tp, params):
+        return h @ params["w_down"]
+    return tp.psum(h @ params["w_down"])
+
+
+def _cut_on_ff(tp, params) -> bool:
+    """Whether the FFN's leaves are cut over ``model`` on d_ff (``w_gate``
+    / ``w_up`` on dim 1, ``w_down`` on dim 0) rather than whole; raises
+    ``NotImplementedError`` naming the leaf and dim otherwise."""
+    want = {"w_gate": 1, "w_up": 1, "w_down": 0}
+    dims = {n: tp.dim(n) for n in want if n in params}
+    if all(d is None for d in dims.values()):
+        return False
+    for n, d in dims.items():
+        if d != want[n]:
+            raise NotImplementedError(
+                f"FFN: {n} cut over 'model' on dim {d}; the mesh steps "
+                f"compute it cut on dim {want[n]} (d_ff) or whole, as the "
+                f"FFN's other leaves")
+    return True
 
 
 def init_channel_mix(gen: torch.Generator, cfg: ModelConfig,

@@ -37,13 +37,27 @@ class Model:
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0, *, device: DeviceLike = "cuda",
-             dtype: DTypeLike = torch.float32) -> Params:
+             dtype: DTypeLike = torch.float32, mesh=None) -> Params:
         """Random weights from a ``torch.Generator`` on ``device`` seeded
-        with ``seed``; raises on ``"cuda"`` without a GPU."""
+        with ``seed``; raises on ``"cuda"`` without a GPU. With ``mesh``
+        (a live ``DeviceMesh``), stored by ``param_specs`` as DTensors,
+        each layer cut to this rank's slice as soon as it is drawn, so no
+        rank holds more than one whole layer (and one leaf in fp32): the
+        same bits as ``shard_tree(init(seed), specs, mesh)``."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        return tfm.init_params(gen, self.cfg, as_dtype(dtype))
+        place = None
+        if mesh is not None:
+            from repro_torch.sharding import param_specs, shard_tree
+            specs = param_specs(self.param_shapes(dtype), self.cfg, mesh)
+
+            def place(path, sub):
+                spec = specs
+                for k in path:
+                    spec = spec[k]
+                return shard_tree(sub, spec, mesh)
+        return tfm.init_params(gen, self.cfg, as_dtype(dtype), place)
 
     def param_shapes(self, dtype: DTypeLike = torch.float32) -> Params:
         """``init``'s tree on the meta device (shapes and dtypes, no
@@ -75,7 +89,11 @@ class Model:
                    memory: Optional[Tensor] = None) -> Params:
         """An empty decode cache in the weights' dtype; an
         encoder-decoder's holds ``memory``'s cross-attention keys and
-        values (zeros without it)."""
+        values (zeros without it). For params stored on a mesh, DTensors
+        stored by ``cache_specs`` (each rank allocates its shards)."""
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            return _mesh_model(self, mesh).init_cache(params, batch, max_len)
         return tfm.init_cache(params, self.cfg, batch, max_len,
                               memory=memory)
 
@@ -93,11 +111,16 @@ class Model:
         ``batch["frames"]`` first. ``batch["patches"]`` is ignored, as the
         reference's ``Model.prefill`` ignores it: the image prefix runs
         only through ``forward_hidden`` (``serve.make_prefill_step``, the
-        loss)."""
+        loss). For params stored on a mesh, the logits are stored by
+        ``batch_specs`` and the cache by ``cache_specs``, each rank
+        computing its shard (``models/parallel.py``)."""
         tokens = batch["tokens"]
         if tokens.shape[1] > max_len:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens does not "
                              f"fit max_len {max_len}")
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            return _mesh_model(self, mesh).prefill(params, batch, max_len)
         memory = (self.encode(params, batch["frames"]) if self.cfg.is_encdec
                   else None)
         h, cache = tfm.prefill_hidden(params, self.cfg, tokens, max_len,
@@ -107,6 +130,11 @@ class Model:
 
     def decode_step(self, params: Params, cache: Params, token: Tensor,
                     index: int) -> Tuple[Tensor, Params]:
+        """One decode step; for params stored on a mesh, over it (the
+        logits stored by ``batch_specs``, the cache written in place)."""
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            return _mesh_model(self, mesh).decode(params, cache, token, index)
         return tfm.decode_step(params, self.cfg, cache, token, index)
 
     # -- helpers ------------------------------------------------------------
@@ -115,6 +143,16 @@ class Model:
         """``frontends.make_batch`` in fp32: the same seed gives the same
         batch on every device."""
         return make_batch(seed, self.cfg, batch, seq, device=device)
+
+
+def _mesh_of(params: Params):
+    from repro_torch.models.parallel import mesh_of
+    return mesh_of(params)
+
+
+def _mesh_model(model: Model, mesh):
+    from repro_torch.models.parallel import mesh_model
+    return mesh_model(model, mesh)
 
 
 def build_model(arch: str, smoke: bool = False) -> Model:

@@ -13,9 +13,9 @@ alone.
 Dispatch computes only the kept (token, expert) pairs: the reference
 fills each expert's C slots with zero-weight tokens when fewer are
 routed to it, and those slots add exactly 0. So a decode step at batch 1
-reads the weights of its k experts, not of all E. The reference's
-sharding hints (``constrain``, the model axis) have no counterpart on
-one device.
+reads the weights of its k experts, not of all E. Over a mesh
+(``tp``), each rank computes its experts' pairs (the reference's
+``constrain`` of the dispatch over ``model``; ``models/parallel.py``).
 
 Under :func:`route_over_ranks` a full-sequence forward routes the tokens
 of every rank of a ``torch.distributed`` group as one group, each rank
@@ -167,8 +167,70 @@ def _expert_ffn(params, e: int, x: Tensor, cfg: ModelConfig) -> Tensor:
     return h @ params["w_down"][e]
 
 
+def _router_logits(params, xg: Tensor, tp) -> Tensor:
+    """(G, n, E) fp32 router logits; over a mesh, a router cut on E
+    gives this rank's experts' logits, all-gathered over ``model``, and
+    one cut on D partial products summed over it."""
+    w = params["router"]
+    d = None if tp is None else tp.dim("router")
+    if d is None:
+        return (xg @ w).to(torch.float32)
+    if d == 1:
+        return tp.gather(xg @ w, -1).to(torch.float32)
+    n = w.shape[0]
+    xs = xg[..., tp.model.rank * n:(tp.model.rank + 1) * n]
+    return tp.psum(xs @ w).to(torch.float32)
+
+
+def _local_experts(params, cfg: ModelConfig, tp) -> Tuple[int, int, bool]:
+    """(first expert, end, whether the output is a partial sum over
+    ``model``) of the experts this rank computes: its own block where
+    the stacks are cut on E (each pair's expert index minus ``first``
+    indexes the local stack), every expert with its d_ff share where they
+    are cut on d_ff, every expert whole where they are whole."""
+    e = cfg.n_experts
+    if tp is None:
+        return 0, e, False
+    names = [n for n in ("w_gate", "w_up", "w_down") if n in params]
+    dims = {n: tp.dim(n) for n in names}
+    if all(d is None for d in dims.values()):
+        return 0, e, False
+    if all(d == 0 for d in dims.values()):
+        el = params["w_up"].shape[0]
+        return tp.model.rank * el, (tp.model.rank + 1) * el, True
+    f_cut = {"w_gate": 2, "w_up": 2, "w_down": 1}
+    if all(dims[n] == f_cut[n] for n in names):
+        return 0, e, True
+    bad = next((n for n in names if dims[n] not in (0, f_cut[n])),
+               names[0])
+    raise NotImplementedError(
+        f"MoE: {bad} cut over 'model' on dim {dims[bad]}; the mesh steps "
+        f"compute the expert stacks all cut on E (dim 0), all on d_ff, or "
+        f"whole")
+
+
+def _route_over_data(combine: Tensor, cfg: ModelConfig, tp) -> Routing:
+    """This rank's kept pairs of the routing of every data rank's tokens
+    as one batch, from its own (G, n_loc, E) ``combine`` (the batch cut
+    over the data axes, each rank's tokens a contiguous block of every
+    group): ``combine`` all-gathered, routed with the capacity of the
+    global group, the pairs of this rank's block kept, their tokens
+    renumbered into its (G, n_loc) tokens."""
+    g, nl, e = combine.shape
+    every = tp.dgather(combine.contiguous(), 1)            # (G, n, E)
+    n = every.shape[1]
+    rt = route(every, moe_capacity(cfg, n))
+    lo = tp.data.rank * nl
+    gi, idx = rt.token // n, rt.token % n
+    mine = (idx >= lo) & (idx < lo + nl)
+    ex = rt.expert[mine]
+    counts = tuple(torch.bincount(ex, minlength=e).tolist())
+    return Routing(ex, gi[mine] * nl + idx[mine] - lo, rt.gate[mine], counts)
+
+
 def moe_forward(params, x: Tensor, cfg: ModelConfig,
-                group: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+                group: Optional[int] = None, tp=None
+                ) -> Tuple[Tensor, Tensor]:
     """x: (B, T, D) -> (out, aux_loss). ``group=None`` routes all B·T
     tokens as one group (the reference's full-sequence forward);
     ``group=B`` routes each position's B tokens as a group of its own,
@@ -176,10 +238,18 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig,
     aux loss is the reference's Switch-style E·Σ_e f_e·p_e times
     ``router_aux_weight`` in fp32, averaged over the groups. Under
     :func:`route_over_ranks`, ``group=None`` routes every rank's tokens
-    as one group and the aux is this rank's share of theirs."""
+    as one group and the aux is this rank's share of theirs.
+
+    Over a mesh (``tp``, serving: no aux loss, 0), a batch cut over the
+    data axes is routed as one batch with the other data ranks'
+    (:func:`_route_over_data`); along ``model`` a rank computes its own
+    experts' kept pairs, or every pair with its d_ff share, and the
+    partial outputs are summed with one all-reduce."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     ranks = _OVER_RANKS[-1] if group is None and _OVER_RANKS else None
+    if tp is not None and ranks is not None:
+        raise NotImplementedError("route_over_ranks over a mesh's steps")
     if group is None:
         xg = x.reshape(1, b * t, d)
     elif group == b:
@@ -189,14 +259,18 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig,
                          f"position's {b} tokens ({b})")
     g, n, _ = xg.shape
 
-    logits = (xg @ params["router"]).to(torch.float32)    # (G, n, E)
+    logits = _router_logits(params, xg, tp)               # (G, n, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _top(probs, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     # per-token-per-expert combined weight; 0 where not routed
     combine = torch.zeros_like(probs).scatter(-1, top_e, top_p)
 
-    if ranks is None:
+    if tp is not None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        rt = (_route_over_data(combine, cfg, tp) if tp.batch_split
+              else route(combine, moe_capacity(cfg, n)))
+    elif ranks is None:
         frac_tokens = torch.mean((combine > 0).to(torch.float32), dim=1)
         frac_prob = torch.mean(probs, dim=1)
         aux = torch.mean(e * torch.sum(frac_tokens * frac_prob, dim=-1)
@@ -204,17 +278,19 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig,
         rt = route(combine, moe_capacity(cfg, n))
     else:
         rt, aux = _route_global(combine[0], probs[0], cfg, ranks)
+    lo, hi, partial = _local_experts(params, cfg, tp)
     xt = xg.reshape(g * n, d)
     out = torch.zeros_like(xt)
     start = 0
     for ex, c in enumerate(rt.counts):
-        if not c:
-            continue
-        tok = rt.token[start:start + c]
-        y = _expert_ffn(params, ex, xt[tok], cfg)
-        y = y * rt.gate[start:start + c, None].to(y.dtype)
-        out.index_add_(0, tok, y)
+        if c and lo <= ex < hi:
+            tok = rt.token[start:start + c]
+            y = _expert_ffn(params, ex - lo, xt[tok], cfg)
+            y = y * rt.gate[start:start + c, None].to(y.dtype)
+            out.index_add_(0, tok, y)
         start += c
+    if partial:
+        tp.psum(out)
     out = out.reshape(g, n, d)
     if group is not None:
         out = out.transpose(0, 1)

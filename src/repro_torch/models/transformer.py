@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -54,30 +54,39 @@ def _sinusoidal(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 # init
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
+def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+                place: Optional[Callable[[Tuple, Any], Any]] = None
                 ) -> Params:
     """Random weights drawn from ``gen`` on its device, layer by layer
     (with cross-attention in an encoder-decoder's), then the embedding,
     the LM head when untied, and an encoder-decoder's encoder: "A"
     layers with a dense FFN and no cross-attention, and its final
-    norm."""
+    norm. ``place(path, subtree)``, when given, takes each layer as soon
+    as it is drawn (path ``("layers", i)``), then each other top-level
+    entry (``("embed",)``, ...), and its result is kept instead: the
+    draws, their order and the generator are the same."""
     d, v = cfg.d_model, cfg.vocab_size
     cross = cfg.is_encdec
-    layers = [blocks.init_layer(gen, cfg, *layer_signature(cfg, i), dtype,
-                                cross=cross)
+    keep = place or (lambda path, x: x)
+    layers = [keep(("layers", i),
+                   blocks.init_layer(gen, cfg, *layer_signature(cfg, i),
+                                     dtype, cross=cross))
               for i in range(cfg.num_layers)]
     params: Params = {
-        "embed": dense_init(gen, (v, d), scale=0.02, dtype=dtype),
+        "embed": keep(("embed",), dense_init(gen, (v, d), scale=0.02,
+                                             dtype=dtype)),
         "layers": layers,
-        "final_norm": torch.zeros(d, dtype=dtype, device=gen.device),
+        "final_norm": keep(("final_norm",),
+                           torch.zeros(d, dtype=dtype, device=gen.device)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (d, v), dtype=dtype)
+        params["lm_head"] = keep(("lm_head",),
+                                 dense_init(gen, (d, v), dtype=dtype))
     if cross:
-        params["encoder"] = {
+        params["encoder"] = keep(("encoder",), {
             "layers": [blocks.init_layer(gen, cfg, "A", False, dtype)
                        for _ in range(cfg.enc_layers)],
-            "final_norm": torch.zeros(d, dtype=dtype, device=gen.device)}
+            "final_norm": torch.zeros(d, dtype=dtype, device=gen.device)})
     return params
 
 
@@ -108,8 +117,24 @@ def param_count(params: Params) -> int:
 # ---------------------------------------------------------------------------
 # forward (prefill)
 
-def _embed(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    x = params["embed"][tokens]
+def _embed(params, cfg: ModelConfig, tokens: Tensor, tp=None) -> Tensor:
+    """The tokens' embeddings, scaled where the model scales them. Over a
+    mesh (``tp``), an embedding cut on the vocabulary is looked up where
+    this rank holds the row (zeros elsewhere) and summed over ``model``;
+    one cut on D is looked up and all-gathered."""
+    w = params["embed"]
+    d = None if tp is None else tp.dim("embed")
+    if d is None:
+        x = w[tokens]
+    elif d == 0:
+        n = w.shape[0]
+        local = tokens - tp.model.rank * n
+        inside = (local >= 0) & (local < n)
+        x = torch.where(inside[..., None], w[local.clamp(0, n - 1)],
+                        torch.zeros((), dtype=w.dtype, device=w.device))
+        x = tp.psum(x)
+    else:
+        x = tp.gather(w[tokens], -1)
     if cfg.emb_scale:
         # the reference scales by sqrt(d_model) cast to the working dtype
         # first (50.5, not 50.596, in bf16 at d_model 2560)
@@ -117,14 +142,36 @@ def _embed(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     return x
 
 
-def logits_fn(params, cfg: ModelConfig, h: Tensor) -> Tensor:
-    return h @ params["embed"].T if cfg.tie_embeddings \
-        else h @ params["lm_head"]
+def logits_fn(params, cfg: ModelConfig, h: Tensor, tp=None) -> Tensor:
+    """The LM head's logits of h (..., D). Over a mesh (``tp``), a head
+    cut on the vocabulary gives this rank's columns, all-gathered over
+    ``model`` (the reference's vocab-parallel logits); one cut on D
+    partial products, summed over it."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = params[name].T if cfg.tie_embeddings else params[name]  # (D, V)
+    d = None if tp is None else tp.dim(name)
+    if d is None:
+        return h @ w
+    if d == (0 if cfg.tie_embeddings else 1):
+        return tp.gather(h @ w, -1)
+    n = w.shape[0]
+    return tp.psum(h[..., tp.model.rank * n:(tp.model.rank + 1) * n] @ w)
+
+
+def unshard_head(params, tp):
+    """``params`` with its embedding and LM head whole along the data axes
+    (``fsdp``), as :func:`forward_hidden` and :func:`prefill_hidden` take
+    them over a mesh; the layers' leaves are gathered a layer at a
+    time."""
+    if tp is None or tp.data.size == 1:
+        return params
+    top = {k: params[k] for k in ("embed", "lm_head") if k in params}
+    return dict(params, **tp.unshard(top))
 
 
 def _run_layers(params, cfg: ModelConfig, x: Tensor, *,
                 max_len: Optional[int] = None, prefix_len: int = 0,
-                memory: Optional[Tensor] = None
+                memory: Optional[Tensor] = None, tp=None
                 ) -> Tuple[Tensor, Tensor, Optional[List[Params]]]:
     """Apply all decoder layers over positions 0..T-1, the first
     ``prefix_len`` bidirectional, cross-attending to ``memory``:
@@ -132,22 +179,31 @@ def _run_layers(params, cfg: ModelConfig, x: Tensor, *,
     also each layer's decode cache (and the aux 0: prefill drops it).
     Without it and with ``cfg.remat``, each layer is rematerialized in
     the backward (the reference's ``jax.checkpoint`` per layer): only the
-    layer boundaries are saved."""
+    layer boundaries are saved. Over a mesh (``tp``), each layer's leaves
+    cut over the data axes are gathered just before it runs."""
     caches = [] if max_len is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         lt, moe = layer_signature(cfg, i)
+        ltp = _layer_tp(tp, i)
+        if ltp is not None:
+            lp = ltp.unshard(lp)
         if max_len is None:
             fwd = partial(blocks.layer_forward, cfg=cfg, layer_type=lt,
-                          is_moe=moe, prefix_len=prefix_len, memory=memory)
+                          is_moe=moe, prefix_len=prefix_len, memory=memory,
+                          tp=ltp)
             x, a = remat(fwd, lp, x) if cfg.remat else fwd(lp, x)
             aux = aux + a
         else:
             x, c = blocks.layer_prefill(lp, x, cfg=cfg, layer_type=lt,
                                         max_len=max_len, is_moe=moe,
-                                        memory=memory)
+                                        memory=memory, tp=ltp)
             caches.append(c)
     return x, aux, caches
+
+
+def _layer_tp(tp, i: int):
+    return None if tp is None else tp.sub("layers").sub(i)
 
 
 def encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
@@ -165,15 +221,18 @@ def encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Tensor]
-                   ) -> Tuple[Tensor, Tensor, int]:
+def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Tensor],
+                   tp=None) -> Tuple[Tensor, Tensor, int]:
     """Embed the tokens (scaled) after a VLM's ``patches`` when the batch
     has them (cast, not scaled; they attend both ways), add sinusoidal
     positions over S where the model uses them, and run the layers (an
     encoder-decoder's against its encoded ``frames``). Returns (hidden
     (B,S,D), aux_loss, text_offset): the MoE layers' aux losses summed (0
-    without MoE), the offset the prefix length P (0 without patches)."""
-    x = _embed(params, cfg, batch["tokens"])
+    without MoE), the offset the prefix length P (0 without patches).
+    Over a mesh (``tp``), ``batch`` holds this rank's rows and ``params``
+    its shards, the embedding and head whole along the data axes
+    (:func:`unshard_head`)."""
+    x = _embed(params, cfg, batch["tokens"], tp)
     prefix_len, memory = 0, None
     if cfg.vis_tokens > 0 and "patches" in batch:
         patches = batch["patches"]
@@ -185,7 +244,7 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Tensor]
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)
     h, aux, _ = _run_layers(params, cfg, x, prefix_len=prefix_len,
-                            memory=memory)
+                            memory=memory, tp=tp)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, aux, prefix_len
 
@@ -215,17 +274,20 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor],
 
 
 def prefill_hidden(params, cfg: ModelConfig, tokens: Tensor, max_len: int,
-                   memory: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
+                   memory: Optional[Tensor] = None, tp=None
+                   ) -> Tuple[Tensor, Params]:
     """:func:`forward_hidden` of the text alone through
     ``blocks.layer_prefill``, cross-attending to ``memory`` (the encoded
     frames): (hidden, cache) with the cache as T decode steps from
-    ``init_cache(..., memory=memory)`` would have left it."""
-    x = _embed(params, cfg, tokens)
+    ``init_cache(..., memory=memory)`` would have left it; over a mesh
+    (``tp``), this rank's rows and its shard of the cache, from params as
+    :func:`forward_hidden` takes them."""
+    x = _embed(params, cfg, tokens, tp)
     if _sinusoidal(cfg):
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)
     h, _, caches = _run_layers(params, cfg, x, max_len=max_len,
-                               memory=memory)
+                               memory=memory, tp=tp)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), {"layers": caches}
 
 
@@ -251,21 +313,26 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, cache: Params, token: Tensor,
-                index: int) -> Tuple[Tensor, Params]:
+                index: int, tp=None) -> Tuple[Tensor, Params]:
     """One decode step. token: (B,) integer; index: the absolute position
     (a Python int), whose sinusoid is added where the model uses them.
     Returns (logits (B, V), new cache); attention caches are updated in
-    place."""
-    x = _embed(params, cfg, token[:, None])
+    place. Over a mesh (``tp``), this rank's rows, its shards of the
+    weights and of the cache; the logits whole along the vocabulary."""
+    params = unshard_head(params, tp)
+    x = _embed(params, cfg, token[:, None], tp)
     if _sinusoidal(cfg):
         pos = torch.full((1,), index, device=x.device)
         x = x + sinusoid_at(pos, cfg.d_model).to(x.dtype)
     new_layers = []
     for i, (lp, lc) in enumerate(zip(params["layers"], cache["layers"])):
         lt, moe = layer_signature(cfg, i)
+        ltp = _layer_tp(tp, i)
+        if ltp is not None:
+            lp = ltp.unshard(lp)
         x, nc = blocks.layer_decode(lp, x, lc, index, cfg=cfg, layer_type=lt,
-                                    is_moe=moe)
+                                    is_moe=moe, tp=ltp)
         new_layers.append(nc)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = softcap(logits_fn(params, cfg, h)[:, 0], cfg.logit_softcap)
+    logits = softcap(logits_fn(params, cfg, h, tp)[:, 0], cfg.logit_softcap)
     return logits, {"layers": new_layers}

@@ -77,6 +77,16 @@ def _coord(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 
 
+def clients_group(mesh):
+    """The mesh's own group along its data axes through this rank: the
+    ranks that share its ``model`` index, ordered by their (pod, data)
+    coordinates major to minor, which hold the clients 0..N-1 (a
+    multi-pod mesh flattens its pod and data axes once)."""
+    daxes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    sub = mesh[daxes[0]] if len(daxes) == 1 else mesh[daxes]._flatten()
+    return sub.get_group()
+
+
 def _contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
     stride, acc = [], 1
     for n in reversed(tuple(shape)):

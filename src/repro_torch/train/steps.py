@@ -8,8 +8,10 @@ live ``DeviceMesh`` (``launch.mesh``): clients = the product of the data
 axes, one a data index, clouds = the ``pod`` axis when there is one,
 else contiguous client blocks (``MeshTopology.from_mesh``). The ranks
 that share a ``model`` index hold every client between them; ranks along
-``model`` repeat their data index's compute (tensor-parallel compute is
-not ported yet) and, before the update, take the gradient, reputation
+``model`` repeat their data index's compute (these steps gather the
+parameters whole; tensor-parallel compute over ``model`` runs in the
+serve steps, ``models/parallel.py``) and, before the update, take the
+gradient, reputation
 and metrics of the model-index-0 rank, so their copies agree bit for
 bit. Or it takes a ``ClientMesh(n_clients, group)``: the clients over
 the ranks of a ``torch.distributed`` group, as ``federated/sharded.py``
@@ -84,8 +86,8 @@ from repro_torch.models.common import chunked_cross_entropy, softcap
 from repro_torch.models.model import Model
 from repro_torch.models.moe import route_over_ranks
 from repro_torch.optim import OptState
-from repro_torch.sharding import (axis_sizes, full_tree, opt_state_specs,
-                                  param_specs, shard_tree)
+from repro_torch.sharding import (axis_sizes, clients_group, full_tree,
+                                  opt_state_specs, param_specs, shard_tree)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -158,16 +160,6 @@ def _model_axis(mesh: DeviceMesh) -> Tuple[Optional[int], int]:
         return None, 0
     m = names.index("model")
     return m, int(mesh.get_coordinate()[m])
-
-
-def clients_group(mesh: DeviceMesh) -> dist.ProcessGroup:
-    """The mesh's own group along its data axes through this rank: the
-    ranks that share its ``model`` index, ordered by their (pod, data)
-    coordinates major to minor, which hold the clients 0..N-1 (a
-    multi-pod mesh flattens its pod and data axes once)."""
-    daxes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
-    sub = mesh[daxes[0]] if len(daxes) == 1 else mesh[daxes]._flatten()
-    return sub.get_group()
 
 
 def _mesh_cloud_groups(mesh: DeviceMesh, kc: int, pc: int

@@ -146,7 +146,7 @@ def steps_fields(omegas) -> dict:
     from repro_torch.models import moe
     from repro_torch.sharding import MeshShape
     from repro_torch.train import ClientMesh
-    from repro_torch.train.steps import clients_group
+    from repro_torch.sharding import clients_group
 
     kept = []
     real = moe.route

@@ -376,7 +376,35 @@ def _reference_serve_default() -> str:
     raise AssertionError("no --arch argument in the reference's launcher")
 
 
+def _reference_serve_flags() -> set:
+    tree = ast.parse((ROOT / "src/repro/launch/serve.py").read_text())
+    return {node.args[0].value for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and str(node.args[0].value).startswith("--")}
+
+
 def test_serve_launcher_defaults_to_the_reference_arch(monkeypatch):
+    """The launcher's default arch and every flag of the reference's
+    (``--debug-mesh`` among them); the serve steps' and ``constrain``'s
+    keywords as the reference's."""
+    from repro.serve import decode as jdecode
+    from repro.sharding import constrain as jconstrain
+    from repro_torch.serve import decode
+    from repro_torch.sharding import constrain
+
+    flags = _reference_serve_flags()
+    assert "--debug-mesh" in flags
+    src = inspect.getsource(serve_mod.main)
+    assert all(f'"{f}"' in src for f in flags), flags
+    for name in ("make_serve_step", "make_prefill_step"):
+        want = inspect.signature(getattr(jdecode, name)).parameters
+        got = inspect.signature(getattr(decode, name)).parameters
+        keys = {k for k, p in want.items() if p.kind == p.KEYWORD_ONLY}
+        assert keys - {"sample"} <= set(got), (name, keys, set(got))
+        assert list(got)[:2] == ["model", "mesh"]
+    assert list(inspect.signature(constrain).parameters) == \
+        list(inspect.signature(jconstrain.constrain).parameters)
     want = _reference_serve_default()
     assert want == "gemma2-2b"
     assert inspect.signature(serve_mod.serve).parameters["arch"].default \

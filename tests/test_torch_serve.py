@@ -20,6 +20,7 @@ Tolerances, all in fp32 on the CPU, with their reasons:
   the reference), the contract the port holds everywhere.
 """
 import dataclasses
+import re
 from dataclasses import replace
 from functools import partial
 
@@ -169,11 +170,18 @@ def test_full_width_layout_and_true_parameter_count():
 
 def test_unported_arch_and_layers_raise():
     """What the port still refuses, naming the missing feature: the serve
-    steps over a mesh (the mesh decode comes with tensor-parallel
-    compute). Every registered arch now builds, one-token attention over
-    a cache of more than 2^20 slots runs (chunk by chunk) and equals the
-    whole-cache softmax, and ``make_plain_step`` takes a mesh
+    steps over a mesh for the families they do not compute yet
+    (whisper-small's encoder and cross-attention, recurrentgemma-2b's
+    RG-LRU, rwkv6-1.6b's RWKV6; the dense, MoE and VLM families run over a
+    mesh, ``tests/test_torch_mesh_serve.py``), and a placement the
+    tensor-parallel code does not compute, by leaf and dim. Every
+    registered arch builds, one-token attention over a cache of more
+    than 2^20 slots runs (chunk by chunk) and equals the whole-cache
+    softmax, and ``make_plain_step`` takes a mesh
     (``tests/test_torch_train.py``)."""
+    from repro_torch.models.parallel import TP, Axis, Groups
+    from repro_torch.sharding import Spec
+
     with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
         get_arch("no-such-arch")
     gen = torch.Generator().manual_seed(0)
@@ -184,11 +192,39 @@ def test_unported_arch_and_layers_raise():
     got = attention._decode_attn(q, big, big, valid, 0.0)
     want = attention._sdpa(q, big, big, valid[None, None, None, None], 0.0)
     assert torch.allclose(got, want, rtol=1e-5, atol=0.0)
-    model = Model(CFG)
-    for make in (make_serve_step, make_prefill_step):
+    for arch, what in (("whisper-small", "the encoder or cross-attention"),
+                       ("recurrentgemma-2b", "RG-LRU ('R') layers"),
+                       ("rwkv6-1.6b", "RWKV6 ('W') layers")):
+        model = Model(reduced(get_arch(arch)))
+        for make in (partial(make_serve_step, batch=2, max_len=8),
+                     make_prefill_step):
+            with pytest.raises(NotImplementedError,
+                               match=rf"{arch}-smoke: serving over a mesh "
+                                     rf"does not compute {re.escape(what)}"):
+                make(model, object())
+    # a leaf cut where the code does not compute it, on 2 model ranks (it
+    # raises before any collective)
+    cfg = reduced(get_arch("gemma2-2b"))
+    lp = Model(cfg).init(0, device="cpu")["layers"][0]
+    x = torch.zeros((1, 1, cfg.d_model))
+    groups = Groups(Axis(None, 0, 2), Axis(None, 0, 1), ("data",))
+    for leaf, spec, call in (
+            ("wq", Spec("model", None, None),
+             lambda tp: attention.attn_forward(lp["mixer"], x, cfg=cfg,
+                                               layer_type="A", tp=tp)),
+            ("wk", Spec(None, None, "model"),
+             lambda tp: attention.attn_forward(lp["mixer"], x, cfg=cfg,
+                                               layer_type="A", tp=tp)),
+            ("w_up", Spec("model", None),
+             lambda tp: mlp.mlp_forward(lp["ffn"], x, cfg, tp=tp))):
+        specs = {"wq": Spec(None, "model", None),
+                 "wo": Spec("model", None, None),
+                 "w_gate": Spec(None, "model"),
+                 "w_down": Spec("model", None), leaf: spec}
+        dim = next(i for i, e in enumerate(spec) if e == "model")
         with pytest.raises(NotImplementedError,
-                           match="serving over a mesh is not ported yet"):
-            make(model, object())
+                           match=rf"{leaf} cut over 'model' on dim {dim}"):
+            call(TP(groups, specs))
 
 
 def test_init_on_cuda_without_gpu_raises(monkeypatch):
