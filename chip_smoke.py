@@ -270,10 +270,15 @@ line. Exits non-zero without a CUDA device, and when
     torchrun --nproc-per-node 4 chip_smoke.py --mesh   # four cards
 
 runs the four-card checks alone (``mesh_main``): first the serve paths
-over a mesh (``MESH_SERVE_PATHS``: mistral-large-123b at all 88 layers
-and mixtral-8x7b at all 32 over (1, 4); ``MESH_LONG``: gemma2-2b's
-524,288-slot cache over (4, 1)), each after a 2-layer fp32 check against
-one card; then the steps over the
+over a mesh (``MESH_SERVE_PATHS``: mistral-large-123b at all 88 layers,
+mixtral-8x7b at all 32, recurrentgemma-2b at 26 (linear_scan 18 a
+prefill on each rank's rd / 4 channels, then held against its plain
+twin at that shard's shape), rwkv6-1.6b at 24 and whisper-small at
+12 + 12 over (1, 4); ``MESH_LONG_PATHS``: gemma2-2b's and
+recurrentgemma-2b's 524,288-position decode over (4, 1)), each after an
+fp32 check against one card (2 layers, or the depth whose spec tree is
+the published one's, on (1, 4) at batch 4 and (4, 1) at batch 1); then
+the steps over the
 (4, 1) and (2, 2) meshes against the whole-moment steps (bit for bit)
 and a one-rank run (1e-5), the shard paths at world 4 and 3 against
 ``Engine.step``, and mixtral-8x7b at full width over the (4, 1) mesh
@@ -517,22 +522,52 @@ MESH_SERVE_PATHS = {
                                       mesh=(1, 4)),
     "serve_mixtral_mesh4": dict(MESH_SERVE, arch="mixtral-8x7b",
                                 mesh=(1, 4)),
+    # the recurrent and encoder-decoder families at their published depths
+    # (whisper: 4 x (432 + 16) text tokens after 1500 stub frames a row);
+    # their parity checks run on both ``MESH_FAMILY_PARITY`` (mesh, batch)
+    # pairs at ``parity_over``, the depths whose spec trees are the
+    # published depths' on (1, 4), (2, 2) and (4, 1); ``scan`` is
+    # linear_scan's launches a rank per prefill (one a "R" layer, on the
+    # rank's rd / 4 channels); ``held`` the weights ``Model.init`` holds
+    # where the config's analytic count leaves some out (the RG-LRU's and
+    # RWKV6's; ``final_norm``; whisper's encoder norm)
+    "serve_recurrentgemma_mesh4": dict(
+        MESH_SERVE, arch="recurrentgemma-2b", mesh=(1, 4), scan=18,
+        parity_over=dict(num_layers=8), held=2_894_435_840),
+    "serve_rwkv6_mesh4": dict(MESH_SERVE, arch="rwkv6-1.6b", mesh=(1, 4),
+                              parity_over=dict(num_layers=2),
+                              held=1_483_180_032),
+    "serve_whisper_mesh4": dict(MESH_SERVE, arch="whisper-small",
+                                mesh=(1, 4), prompt=432,
+                                parity_over=dict(num_layers=2,
+                                                 enc_layers=4),
+                                held=238_060_800),
 }
-# the reference's long_500k over the (4, 1) mesh: gemma2-2b at its full
-# widths and depth in bf16, batch 1, caches of ``slots`` slots whose
-# sequence is cut over data (the "A" layers' 2^17 a card, the "L"
-# layers' 4096-slot window 1024 a card); keys and values drawn on each
-# card into its shard, the positions those of a prefilled prompt of
-# ``slots - empty`` tokens; ``steps`` greedy steps
-MESH_LONG = dict(arch="gemma2-2b", mesh=(4, 1), slots=1 << 19, empty=4,
-                 steps=8, dtype="bfloat16", seed=0)
-# beside each: the arch at 2 layers, full width, fp32 over the same mesh
-# against one card's ``mesh=None`` steps on every rank: a batch of the
-# path's prompts of ``prompt`` tokens, ``steps`` greedy steps (logits
+MESH_FAMILY_PARITY = (((1, 4), 4), ((4, 1), 1))
+# the reference's long_500k over the (4, 1) mesh, batch 1, caches of
+# ``slots`` slots whose sequence (and a recurrent state's channels) is
+# cut over data, drawn on each card into its shard, the positions those
+# of a prefilled prompt of ``slots - empty`` tokens; ``steps`` greedy
+# steps: gemma2-2b at its full widths and depth in bf16 (the "A" layers'
+# 2^17 slots a card, the "L" layers' 4096-slot window 1024 a card);
+# recurrentgemma-2b (its "L" windows of 2048 slots 512 a card, the
+# RG-LRU's h 640 channels a card), its parity at ``parity_over``
+MESH_LONG_PATHS = {
+    "long_decode_gemma2_mesh4": dict(arch="gemma2-2b", mesh=(4, 1),
+                                     slots=1 << 19, empty=4, steps=8,
+                                     dtype="bfloat16", seed=0),
+    "long_decode_recurrentgemma_mesh4": dict(
+        arch="recurrentgemma-2b", mesh=(4, 1), slots=1 << 19, empty=4,
+        steps=8, dtype="bfloat16", seed=0, parity_over=dict(num_layers=8)),
+}
+# beside each: the arch at 2 layers (or its ``parity_over``), full width,
+# fp32 over the same mesh against one card's ``mesh=None`` steps on every
+# rank: a batch of the path's prompts of ``prompt`` tokens (an
+# encoder-decoder's frames beside them), ``steps`` greedy steps (logits
 # within 1e-4 of max |logit|, tokens equal) and ``make_prefill_step``;
-# the long path over one cache of its ``slots`` slots, whole on the card
-# and cut over the ranks, ``_DECODE_CHUNK`` at ``chunk`` on both sides so
-# that both scan chunks (``long_steps`` steps within 1e-5)
+# the long paths over one cache of its ``slots`` slots, whole on the
+# card and cut over the ranks, ``_DECODE_CHUNK`` at ``chunk`` on both
+# sides so that both scan chunks (``long_steps`` steps within 1e-5)
 MESH_PARITY = dict(layers=2, prompt=256, steps=4, seed=1, chunk=1 << 16,
                    long_steps=2)
 # phase 4's federated steps of those families, at their test
@@ -3392,12 +3427,14 @@ def _rel_max(torch, got, want) -> float:
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
-def _greedy(torch, model, params, tokens, step, steps: int, max_len: int):
-    """``Model.prefill`` of ``tokens``, then ``steps`` greedy steps of
-    ``step`` from the prompt's last token: (prefill logits, [step
-    logits], [tokens]), the logits whole."""
+def _greedy(torch, model, params, inputs, step, steps: int, max_len: int):
+    """``Model.prefill`` of ``inputs`` (the tokens, an encoder-decoder's
+    frames), then ``steps`` greedy steps of ``step`` from the prompt's
+    last token: (prefill logits, [step logits], [tokens]), the logits
+    whole."""
+    tokens = inputs["tokens"]
     t = tokens.shape[1]
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    logits, cache = model.prefill(params, inputs, max_len)
     out = [_whole(logits)]
     tok, toks = tokens[:, -1], []
     for i in range(steps):
@@ -3422,12 +3459,25 @@ def _trace_summary(trace) -> dict:
                 decode_top=trace["top"][:8])
 
 
-def mesh_parity_phase(torch, dev, mesh, arch: str, batch: int):
-    """``arch`` at full width, ``MESH_PARITY["layers"]`` layers, fp32: the
-    prefill and greedy steps over ``mesh`` (weights drawn into their
-    shards) against one card's ``mesh=None`` steps on this rank (logits
-    within 1e-4 of max |logit|, tokens equal), and ``make_prefill_step``
-    both ways."""
+def _serve_inputs(torch, cfg, batch: int, prompt: int, gen, dev) -> dict:
+    """``batch`` prompts of ``prompt`` tokens drawn from ``gen`` and, for
+    an encoder-decoder, ``enc_frames`` stub frame embeddings a row
+    (fp32; the model casts them), on ``dev``."""
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                   generator=gen).to(dev)}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                                    generator=gen).to(dev)
+    return out
+
+
+def mesh_parity_phase(torch, dev, mesh, arch: str, batch: int,
+                      over=None):
+    """``arch`` at full width, ``MESH_PARITY["layers"]`` layers (or the
+    config fields ``over``), fp32: the prefill and greedy steps over
+    ``mesh`` (weights drawn into their shards) against one card's
+    ``mesh=None`` steps on this rank (logits within 1e-4 of max |logit|,
+    tokens equal), and ``make_prefill_step`` both ways."""
     from dataclasses import replace
 
     from repro_torch.configs.base import get_arch
@@ -3435,26 +3485,26 @@ def mesh_parity_phase(torch, dev, mesh, arch: str, batch: int):
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     mp = MESH_PARITY
-    model = Model(replace(get_arch(arch), num_layers=mp["layers"]))
+    over = dict(num_layers=mp["layers"]) if over is None else over
+    model = Model(replace(get_arch(arch), **over))
     cfg = model.cfg
     check_memory_free(torch, f"{arch} parity")
     whole = model.init(mp["seed"], device=dev, dtype="float32")
     params = model.init(mp["seed"], device=dev, dtype="float32", mesh=mesh)
     gen = torch.Generator().manual_seed(mp["seed"])
-    tokens = torch.randint(0, cfg.vocab_size, (batch, mp["prompt"]),
-                           generator=gen).to(dev)
+    inputs = _serve_inputs(torch, cfg, batch, mp["prompt"], gen, dev)
     max_len = mp["prompt"] + mp["steps"]
-    one, one_toks = _greedy(torch, model, whole, tokens,
+    one, one_toks = _greedy(torch, model, whole, inputs,
                             make_serve_step(model)[0], mp["steps"], max_len)
     got, got_toks = _greedy(
-        torch, model, params, tokens,
+        torch, model, params, inputs,
         make_serve_step(model, mesh, batch=batch, max_len=max_len)[0],
         mp["steps"], max_len)
     errs = [_rel_max(torch, g, w) for g, w in zip(got, one)]
     pre_err = _rel_max(
         torch, _whole(make_prefill_step(model, mesh, batch=batch)(
-            params, {"tokens": tokens})),
-        make_prefill_step(model)(whole, {"tokens": tokens}))
+            params, inputs)),
+        make_prefill_step(model)(whole, inputs))
     check(max(errs + [pre_err]) <= 1e-4,
           f"{arch} over the mesh: logits {max(errs):.3e}, prefill step "
           f"{pre_err:.3e} of max |logit| from one card's")
@@ -3462,9 +3512,62 @@ def mesh_parity_phase(torch, dev, mesh, arch: str, batch: int):
           f"against one card's {one_toks}")
     del whole, params
     torch.cuda.empty_cache()
-    return dict(layers=mp["layers"], prompt=mp["prompt"], batch=batch,
-                logits_rel_max=errs, prefill_step_rel_max=pre_err,
+    return dict(layers=cfg.num_layers, enc_layers=cfg.enc_layers,
+                mesh=list(mesh.shape), prompt=mp["prompt"],
+                batch=batch, logits_rel_max=errs, prefill_step_rel_max=pre_err,
                 tokens=got_toks)
+
+
+@contextmanager
+def scan_shapes(ops):
+    """The (shape, dtype) of every ``ops.linear_scan`` call inside, the
+    RG-LRU layers' calls through ``ops`` (the wrapper still counts)."""
+    seen, real = [], ops.linear_scan
+
+    def spy(a, b):
+        seen.append((tuple(a.shape), str(a.dtype)))
+        return real(a, b)
+    ops.linear_scan = spy
+    try:
+        yield seen
+    finally:
+        ops.linear_scan = real
+
+
+def scan_shard_record(torch, ops, dev, shape):
+    """``linear_scan`` on one rank's shard of the mesh prefill (``shape``
+    = (B, T, rd / 4)) held against its plain twin on the card, fp32
+    within 1e-5 and bf16 within 5e-2; the bf16 call's device time
+    (CUDA graph), the plain twin's and the bound (a, b read, h written
+    once; the 2 ops an element)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    a = 0.1 + 0.89 * torch.rand(*shape, generator=gen, device=dev)
+    x = torch.randn(*shape, generator=gen, device=dev)
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
+        ad, xd = a.to(dtype), x.to(dtype)
+        before = ops.linear_scan.launches
+        got = ops.linear_scan(ad, xd)
+        check(ops.linear_scan.launches == before + 1,
+              f"linear_scan {shape}: the kernel did not launch once")
+        want = ops.linear_scan_plain(ad, xd)
+        errs[str(dtype)] = max_err(torch, got, want)
+        check(got.dtype == dtype and close(torch, got, want, tol),
+              f"linear_scan on the shard {shape} {dtype}: max err "
+              f"{errs[str(dtype)]} > {tol}")
+    ab, xb = a.to(torch.bfloat16), x.to(torch.bfloat16)
+    n = a.numel()
+    b_ms, b_by = bound(3 * n * 2, 2 * n)
+    rec = dict(shape=list(shape), max_abs_err=errs["torch.bfloat16"],
+               max_abs_err_fp32=errs["torch.float32"],
+               ms=time_ms(torch, lambda: ops.linear_scan(ab, xb)),
+               plain_ms=time_ms(torch,
+                                lambda: ops.linear_scan_plain(ab, xb)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del a, x, ab, xb
+    torch.cuda.empty_cache()
+    return rec
 
 
 def mesh_serve_phase(torch, dev, mesh, path: str):
@@ -3491,20 +3594,20 @@ def mesh_serve_phase(torch, dev, mesh, path: str):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     held = sum(x.numel() for x in tree_leaves(params))
-    check(held == cfg.param_count() + cfg.d_model,
-          f"{path}: {held} weights, expected "
-          f"{cfg.param_count() + cfg.d_model}")
+    want = sv.get("held", cfg.param_count() + cfg.d_model)
+    check(held == want, f"{path}: {held} weights, expected {want}")
     stored_gib = _local_gib(params)
     b, t, gen = sv["batch"], sv["prompt"], sv["gen"]
     max_len = t + gen
     g = torch.Generator().manual_seed(sv["seed"])
-    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g).to(dev)
+    inputs = _serve_inputs(torch, cfg, b, t, g, dev)
+    tokens = inputs["tokens"]
     prefill_ms, cache = [], None
     for _ in range(2):
         cache = None                  # the first's cache goes first
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+        logits, cache = model.prefill(params, inputs, max_len)
         logits = _whole(logits)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
@@ -3539,7 +3642,7 @@ def mesh_serve_phase(torch, dev, mesh, path: str):
                    host=False)
     del cache, state
     pre = make_prefill_step(model, mesh, batch=sv["prefill_rows"])
-    rows = {"tokens": tokens[:sv["prefill_rows"]]}
+    rows = {k: v[:sv["prefill_rows"]] for k, v in inputs.items()}
     pre_ms = []
     for _ in range(1 + sv["calls"]):
         torch.cuda.synchronize()
@@ -3552,10 +3655,12 @@ def mesh_serve_phase(torch, dev, mesh, path: str):
           f"{path}: make_prefill_step logits {tuple(out.shape)}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     outside_gib = _outside_gib(torch, dev)
-    del params, out
+    del params, out, inputs, rows
     torch.cuda.empty_cache()
     return dict(
         arch=sv["arch"], mesh=sv["mesh"], layers=cfg.num_layers,
+        enc_layers=cfg.enc_layers, frames=cfg.enc_frames if cfg.is_encdec
+        else 0,
         dtype=sv["dtype"], n_params=held, allocated_before_gib=before_gib,
         init_s=init_s, stored_gib=stored_gib, cache_gib=cache_gib,
         prefill_batch=b, prompt=t, prefill_ms_first=prefill_ms[0],
@@ -3573,30 +3678,35 @@ def mesh_serve_phase(torch, dev, mesh, path: str):
 
 def _long_cache(torch, model, params, slots: int, gen, n_prompt: int):
     """``model.init_cache`` of ``slots`` slots at batch 1, its keys and
-    values drawn from ``gen`` into this rank's storage and its positions
-    those of a prefilled prompt of ``n_prompt`` tokens."""
+    values (and the recurrent layers' states) drawn from ``gen`` into
+    this rank's storage and its positions those of a prefilled prompt of
+    ``n_prompt`` tokens."""
     from repro_torch.models.parallel import local_tree
+    from repro_torch.tree import tree_leaves
 
     cache = model.init_cache(params, 1, slots)
     for lc in local_tree(cache)["layers"]:
-        c = lc["attn"]
-        c["k"].normal_(generator=gen)
-        c["v"].normal_(generator=gen)
-        n = c["pos"].shape[0]
-        p = torch.arange(max(n_prompt - n, 0), n_prompt,
-                         device=c["pos"].device)
-        c["pos"].fill_(-1)
-        c["pos"][p % n] = p.to(torch.int32)
+        for x in tree_leaves(lc):
+            if x.is_floating_point():
+                x.normal_(generator=gen)
+        if "attn" in lc:
+            pos = lc["attn"]["pos"]
+            n = pos.shape[0]
+            p = torch.arange(max(n_prompt - n, 0), n_prompt,
+                             device=pos.device)
+            pos.fill_(-1)
+            pos[p % n] = p.to(torch.int32)
     return cache
 
 
-def mesh_long_parity(torch, dev, mesh):
-    """``MESH_LONG``'s arch at 2 layers ("L", "A"), full width, fp32: one
-    cache of ``slots`` slots drawn whole on the card (the same on every
-    rank), then cut to each rank's sequence range; ``long_steps`` greedy
-    steps over the mesh against one card's chunked decode of the whole
-    cache, ``_DECODE_CHUNK`` at ``MESH_PARITY["chunk"]`` on both sides:
-    logits within 1e-5 of max |logit|, tokens equal."""
+def mesh_long_parity(torch, dev, mesh, path: str):
+    """The path's arch at 2 layers ("L", "A"; or its ``parity_over``),
+    full width, fp32: one cache of ``slots`` slots drawn whole on the
+    card (the same on every rank), then cut to each rank's share;
+    ``long_steps`` greedy steps over the mesh against one card's
+    chunked decode of the whole cache, ``_DECODE_CHUNK`` at
+    ``MESH_PARITY["chunk"]`` on both sides: logits within 1e-5 of max
+    |logit|, tokens equal."""
     from dataclasses import replace
 
     from repro_torch.configs.base import get_arch
@@ -3605,9 +3715,10 @@ def mesh_long_parity(torch, dev, mesh):
     from repro_torch.serve.decode import make_serve_step
     from repro_torch.sharding import cache_specs, shard_tree
 
-    ld, mp = MESH_LONG, MESH_PARITY
-    model = Model(replace(get_arch(ld["arch"]), num_layers=2))
-    check_memory_free(torch, "long parity")
+    ld, mp = MESH_LONG_PATHS[path], MESH_PARITY
+    over = ld.get("parity_over", dict(num_layers=2))
+    model = Model(replace(get_arch(ld["arch"]), **over))
+    check_memory_free(torch, f"{path} parity")
     whole = model.init(mp["seed"], device=dev, dtype="float32")
     params = model.init(mp["seed"], device=dev, dtype="float32", mesh=mesh)
     gen = torch.Generator(device=dev)
@@ -3631,32 +3742,35 @@ def mesh_long_parity(torch, dev, mesh):
             toks.append((int(tok1), int(tokm)))
     finally:
         attention._DECODE_CHUNK = real
-    check(max(errs) <= 1e-5, f"long parity: logits {max(errs):.3e} of max "
-          f"|logit| from one card's chunked decode")
-    check(all(a == b for a, b in toks), f"long parity: tokens {toks}")
+    check(max(errs) <= 1e-5, f"{path} parity: logits {max(errs):.3e} of "
+          f"max |logit| from one card's chunked decode")
+    check(all(a == b for a, b in toks), f"{path} parity: tokens {toks}")
+    layers = model.cfg.num_layers
     del whole, params, cache1, cachem
     torch.cuda.empty_cache()
-    return dict(layers=2, slots=ld["slots"], chunk=mp["chunk"],
+    return dict(layers=layers, slots=ld["slots"], chunk=mp["chunk"],
                 logits_rel_max=errs, tokens=[a for a, _ in toks])
 
 
-def mesh_long_phase(torch, dev, mesh):
-    """``MESH_LONG`` over ``mesh`` (see there): every logit finite, every
-    token in the vocabulary; step ms and tokens/s, peak and stored GiB a
-    card (weights, the cache's shard), the memory outside the allocator,
-    the collectives a step and the idle share of two traced steps."""
+def mesh_long_phase(torch, dev, mesh, path: str):
+    """``MESH_LONG_PATHS[path]`` over ``mesh`` (see there): every logit
+    finite, every token in the vocabulary; step ms and tokens/s, peak and
+    stored GiB a card (weights, the cache's shard), the memory outside
+    the allocator, the collectives a step and the idle share of two
+    traced steps."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import get_arch
     from repro_torch.models import parallel
+    from repro_torch.models.attention import cache_len
     from repro_torch.models.model import Model
     from repro_torch.serve.decode import make_serve_step
 
-    ld = MESH_LONG
+    ld = MESH_LONG_PATHS[path]
     cfg = get_arch(ld["arch"])
     model = Model(cfg)
     torch.cuda.synchronize()
-    before_gib = check_memory_free(torch, "long_decode_gemma2_mesh4")
+    before_gib = check_memory_free(torch, path)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(ld["seed"], device=dev, dtype=ld["dtype"], mesh=mesh)
     gen = torch.Generator(device=dev)
@@ -3677,9 +3791,9 @@ def mesh_long_phase(torch, dev, mesh):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         coll.append(parallel.collective_counts())
-        check(bool(torch.isfinite(lg).all()), f"long mesh: step {i} logits")
+        check(bool(torch.isfinite(lg).all()), f"{path}: step {i} logits")
         toks.append(int(tok))
-    check(all(0 <= x < cfg.vocab_size for x in toks), f"long mesh: {toks}")
+    check(all(0 <= x < cfg.vocab_size for x in toks), f"{path}: {toks}")
     state = {"tok": tok, "cache": cache}
 
     def decode():
@@ -3687,10 +3801,13 @@ def mesh_long_phase(torch, dev, mesh):
             lg, state["cache"] = step(params, state["cache"], state["tok"],
                                       n_prompt + i)
             state["tok"] = torch.argmax(_whole(lg), dim=-1)
-    trace = _trace(torch, None, "long_decode_gemma2_mesh4", decode, 2,
-                   "decode step", host=False)
+    trace = _trace(torch, None, path, decode, 2, "decode step", host=False)
+    data = ld["mesh"][0]
     rec = dict(arch=ld["arch"], mesh=ld["mesh"], layers=cfg.num_layers,
-               slots=ld["slots"], slots_a_card=ld["slots"] // ld["mesh"][0],
+               slots=ld["slots"],
+               slots_a_card={lt: cache_len(cfg, lt, ld["slots"]) // data
+                             for lt in sorted(set(cfg.layer_types()))
+                             if lt not in ("R", "W")},
                allocated_before_gib=before_gib,
                stored_gib=_local_gib(params), cache_gib=_local_gib(cache),
                step_ms=statistics.median(ms), step_ms_all=ms,
@@ -3706,28 +3823,56 @@ def mesh_long_phase(torch, dev, mesh):
 
 
 def mesh_serve_paths(torch, ops, dev, meshes, record) -> None:
-    """The serve paths over a mesh, each after its 2-layer fp32 parity
-    check, every kernel never launched, recorded as they end."""
+    """The serve paths over a mesh, each after its fp32 parity checks
+    (the path's own mesh and batch at 2 layers, or both
+    ``MESH_FAMILY_PARITY`` pairs at its ``parity_over``), recorded as
+    they end. Each kernel's launches are counted over the path's own
+    run alone: linear_scan ``scan`` a rank per prefill (``Model.prefill``
+    twice and each ``make_prefill_step`` call), every call on the
+    rank's shard of the channels, which is then held against its plain
+    twin on the card; every other kernel never."""
+    from repro_torch.configs.base import get_arch
+
     for path, sv in MESH_SERVE_PATHS.items():
         t0 = time.perf_counter()
+        if "parity_over" in sv:
+            got = {"parity": [mesh_parity_phase(
+                torch, dev, meshes[shape], sv["arch"], batch,
+                sv["parity_over"]) for shape, batch in MESH_FAMILY_PARITY]}
+        else:
+            got = {"parity": mesh_parity_phase(
+                torch, dev, meshes[sv["mesh"]], sv["arch"], sv["batch"])}
         ops.reset_launch_counts()
-        mesh = meshes[sv["mesh"]]
-        got = {"parity": mesh_parity_phase(torch, dev, mesh, sv["arch"],
-                                           sv["batch"])}
-        got.update(mesh_serve_phase(torch, dev, mesh, path))
+        with scan_shapes(ops) as shapes:
+            got.update(mesh_serve_phase(torch, dev, meshes[sv["mesh"]],
+                                        path))
+        counts = ops.launch_counts()
+        scan = sv.get("scan", 0) * (3 + sv["calls"])
+        check(counts["linear_scan"] == scan
+              and all(v == 0 for k, v in counts.items()
+                      if k != "linear_scan"),
+              f"{path}: launches {counts}, linear_scan {scan} expected")
+        got["launches"] = counts
+        if scan:
+            cfg = get_arch(sv["arch"])
+            rd = (cfg.rg_lru_dim or cfg.d_model) // sv["mesh"][1]
+            check(all(sh[-1] == rd for sh, _ in shapes),
+                  f"{path}: linear_scan shapes {sorted(set(shapes))}, "
+                  f"expected rd / model = {rd} channels")
+            got["scan_shapes"] = sorted(set(shapes))
+            got["scan_shard"] = scan_shard_record(
+                torch, ops, dev, (sv["batch"], sv["prompt"], rd))
+        record(path, got, t0)
+    for path, ld in MESH_LONG_PATHS.items():
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        mesh = meshes[ld["mesh"]]
+        got = {"parity": mesh_long_parity(torch, dev, mesh, path)}
+        got.update(mesh_long_phase(torch, dev, mesh, path))
         counts = ops.launch_counts()
         check(all(v == 0 for v in counts.values()),
               f"{path}: launches {counts}")
         record(path, got, t0)
-    t0 = time.perf_counter()
-    ops.reset_launch_counts()
-    mesh = meshes[MESH_LONG["mesh"]]
-    got = {"parity": mesh_long_parity(torch, dev, mesh)}
-    got.update(mesh_long_phase(torch, dev, mesh))
-    counts = ops.launch_counts()
-    check(all(v == 0 for v in counts.values()),
-          f"long_decode_gemma2_mesh4: launches {counts}")
-    record("long_decode_gemma2_mesh4", got, t0)
 
 
 def mesh_main() -> int:

@@ -13,8 +13,11 @@ With ``--debug-mesh`` the slots are served over the reference's small
 mesh of the ranks that exist (``launch.mesh.make_debug_mesh``): weights
 stored by ``param_specs`` as they are drawn, each slot's prompt
 prefilled over the mesh and decoded through ``serve.make_serve_step``
-(a slot's batch of 1: the cache's sequence cut over the data axes, the
-heads, d_ff, experts and vocabulary over ``model``). Under ``torchrun``
+(a slot's batch of 1: the cache's sequence, a recurrent state's
+channels or heads and an encoder-decoder's cross-attention frames cut
+over the data axes; the heads, the RG-LRU's channels, d_ff, experts and
+vocabulary over ``model``; every arch, the recurrent and
+encoder-decoder ones too). Under ``torchrun``
 it joins torchrun's group (gloo on the CPU; NCCL and gloo on the card, a
 card a rank); alone it is the (1, 1) mesh, whose tokens are the plain
 run's.
@@ -22,7 +25,7 @@ run's.
   python -m repro_torch.launch.serve --arch gemma2-2b --smoke \\
       --device cpu --requests 8 --gen 16
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve --smoke \\
-      --debug-mesh --device cpu
+      --debug-mesh --device cpu [--arch recurrentgemma-2b]
 """
 from __future__ import annotations
 

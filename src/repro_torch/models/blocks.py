@@ -72,7 +72,7 @@ def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
     memory's keys and values. ``tp``: the layer's place on a mesh
     (``models/parallel.py``), or ``None``."""
     cache: Optional[Params] = None if max_len is None else {}
-    mtp, ftp = _sub_tp(tp)
+    mtp, ftp, ctp = _sub_tp(tp, layer_type)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm(x, p["norm1"], cfg)
     if layer_type in ATTN_BLOCKS:
@@ -87,22 +87,25 @@ def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
     else:
         prefill = (rglru_mod.rglru_prefill if layer_type == "R"
                    else rwkv_mod.rwkv6_prefill)
-        m, st = prefill(p["mixer"], h, cfg)
+        m, st = prefill(p["mixer"], h, cfg, **_on_mesh(mtp))
         if cache is not None:
             cache["rec"] = st
     x = x + m
     if "cross" in p and memory is not None:
         hx = _norm(x, p["norm_x"], cfg)
-        x = x + attn.cross_attn_forward(p["cross"], hx, memory, cfg=cfg)
-        if cache is not None:
-            cache["cross"] = {k: v.to(x.dtype) for k, v in
-                              attn.init_cross_cache(p["cross"], memory,
-                                                    cfg).items()}
+        if cache is None:
+            x = x + attn.cross_attn_forward(p["cross"], hx, memory, cfg=cfg,
+                                            **_on_mesh(ctp))
+        else:
+            y, kv = attn.cross_attn_prefill(p["cross"], hx, memory, cfg=cfg,
+                                            tp=ctp)
+            x = x + y
+            cache["cross"] = {k: v.to(x.dtype) for k, v in kv.items()}
     h2 = _norm(x, p["norm2"], cfg)
     if layer_type == "W":
-        f = mlp_mod.channel_mix_forward(p["ffn"], h2)
+        f = mlp_mod.channel_mix_forward(p["ffn"], h2, **_on_mesh(ftp))
         if cache is not None:
-            cache["ffn_prev"] = h2[:, -1]
+            cache["ffn_prev"] = _prev(ftp, h2[:, -1])
     elif is_moe:
         group = None if max_len is None else x.shape[0]
         f, aux = moe_mod.moe_forward(p["ffn"], h2, cfg, group=group,
@@ -112,16 +115,31 @@ def _layer_seq(p: Params, x: Tensor, cfg: ModelConfig, layer_type: str,
     return x + f, aux, cache
 
 
-def _sub_tp(tp):
-    """(the mixer's, the FFN's) places on a mesh, or (None, None)."""
+def _sub_tp(tp, layer_type: str):
+    """(the mixer's, the FFN's, the cross-attention's) places on a mesh,
+    or Nones: an attention mixer's cache is the layer's ``attn``, a
+    recurrent one's ``rec``; the channel mix's cache its ``prev``, the
+    layer's ``ffn_prev``."""
     if tp is None:
-        return None, None
-    return tp.sub("mixer", "attn"), tp.sub("ffn")
+        return None, None, None
+    rec = layer_type in ("R", "W")
+    ftp = (tp.sub("ffn", {"prev": "ffn_prev"}) if layer_type == "W"
+           else tp.sub("ffn"))
+    return tp.sub("mixer", "rec" if rec else "attn"), ftp, tp.sub("cross")
+
+
+def _prev(tp, x: Tensor) -> Tensor:
+    """The channel mix's ``ffn_prev`` (B, D) as the cache stores it: this
+    rank's block of D where the cache cuts it over the data axes."""
+    if tp is None:
+        return x
+    from repro_torch.models.parallel import to_cache
+    return to_cache(tp, x, "prev", 1)
 
 
 def _on_mesh(tp) -> Dict[str, Any]:
-    """The FFN's ``tp`` keyword: none off a mesh, so the FFN functions are
-    called there as they always were."""
+    """A module's ``tp`` keyword: none off a mesh, so the module
+    functions are called there as they always were."""
     return {} if tp is None else {"tp": tp}
 
 
@@ -189,7 +207,7 @@ def layer_decode(p: Params, x: Tensor, cache: Params, index: int, *,
     routes the B tokens as one group and drops its aux loss. ``tp``: the
     layer's place on a mesh, or ``None``."""
     check_layer(layer_type)
-    mtp, ftp = _sub_tp(tp)
+    mtp, ftp, ctp = _sub_tp(tp, layer_type)
     new_cache = dict(cache)
     h = _norm(x, p["norm1"], cfg)
     if layer_type in ATTN_BLOCKS:
@@ -197,21 +215,22 @@ def layer_decode(p: Params, x: Tensor, cache: Params, index: int, *,
             p["mixer"], h, cache["attn"], index, cfg=cfg,
             layer_type=layer_type, tp=mtp)
     elif layer_type == "R":
-        m, new_cache["rec"] = rglru_mod.rglru_decode(p["mixer"], h,
-                                                     cache["rec"], cfg)
+        m, new_cache["rec"] = rglru_mod.rglru_decode(
+            p["mixer"], h, cache["rec"], cfg, **_on_mesh(mtp))
     else:
-        m, new_cache["rec"] = rwkv_mod.rwkv6_decode(p["mixer"], h,
-                                                    cache["rec"], cfg)
+        m, new_cache["rec"] = rwkv_mod.rwkv6_decode(
+            p["mixer"], h, cache["rec"], cfg, **_on_mesh(mtp))
     x = x + m
     if "cross" in p:
         hx = _norm(x, p["norm_x"], cfg)
         x = x + attn.cross_attn_decode(p["cross"], hx, cache["cross"],
-                                       cfg=cfg)
+                                       cfg=cfg, **_on_mesh(ctp))
     h2 = _norm(x, p["norm2"], cfg)
     if layer_type == "W":
         f = mlp_mod.channel_mix_forward(p["ffn"], h2,
-                                        prev=cache["ffn_prev"])
-        new_cache["ffn_prev"] = h2[:, 0]
+                                        prev=cache["ffn_prev"],
+                                        **_on_mesh(ftp))
+        new_cache["ffn_prev"] = _prev(ftp, h2[:, 0])
     elif is_moe:
         f, _ = moe_mod.moe_forward(p["ffn"], h2, cfg, **_on_mesh(ftp))
     else:

@@ -73,10 +73,28 @@ def _token_shift(x: Tensor, prev: Optional[Tensor] = None) -> Tensor:
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def channel_mix_forward(params, x: Tensor, prev: Optional[Tensor] = None
-                        ) -> Tensor:
+def channel_mix_forward(params, x: Tensor, prev: Optional[Tensor] = None,
+                        tp=None) -> Tensor:
+    """The channel mix of x (B, T, D) after ``prev`` (B, D) (zeros
+    without it). Over a mesh (``tp``; ``prev`` this rank's shard of the
+    cache's ``ffn_prev``, gathered whole for the token shift), ``w_k`` cut
+    on d_ff is column-parallel and ``w_v`` on its rows row-parallel, the
+    partial products summed over ``model``; ``w_r`` cut on its columns
+    gives this rank's gate columns, all-gathered; whole leaves compute
+    whole."""
+    from repro_torch.models import parallel as par
+    if prev is not None:
+        prev = par.from_cache(tp, prev, "prev", 1)
     xs = _token_shift(x, prev)
     xk = x * params["mu_k"] + xs * (1.0 - params["mu_k"])
     xr = x * params["mu_r"] + xs * (1.0 - params["mu_r"])
-    k = torch.square(torch.relu(xk @ params["w_k"]))
-    return torch.sigmoid(xr @ params["w_r"]) * (k @ params["w_v"])
+    ax = par.split_axis(tp, {"w_k": 1, "w_v": 0})
+    k = torch.square(torch.relu(xk @ par.take(tp, params, "w_k", 1, ax)))
+    kv = par.sum_over(k @ par.take(tp, params, "w_v", 0, ax), ax)
+    dr = None if tp is None else tp.dim("w_r")
+    if dr not in (None, 1):
+        raise NotImplementedError(
+            f"channel mix: w_r cut over 'model' on dim {dr}; the mesh "
+            f"steps compute it cut on dim 1, or whole")
+    r = torch.sigmoid(xr @ params["w_r"])
+    return (r if dr is None else tp.gather(r, -1)) * kv

@@ -93,7 +93,8 @@ class Model:
         stored by ``cache_specs`` (each rank allocates its shards)."""
         mesh = _mesh_of(params)
         if mesh is not None:
-            return _mesh_model(self, mesh).init_cache(params, batch, max_len)
+            return _mesh_model(self, mesh).init_cache(params, batch, max_len,
+                                                      memory)
         return tfm.init_cache(params, self.cfg, batch, max_len,
                               memory=memory)
 
@@ -113,7 +114,9 @@ class Model:
         only through ``forward_hidden`` (``serve.make_prefill_step``, the
         loss). For params stored on a mesh, the logits are stored by
         ``batch_specs`` and the cache by ``cache_specs``, each rank
-        computing its shard (``models/parallel.py``)."""
+        computing its shard (``models/parallel.py``; an encoder-decoder's
+        ``frames`` rows cut by ``batch_specs`` too, encoded over the
+        mesh)."""
         tokens = batch["tokens"]
         if tokens.shape[1] > max_len:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens does not "

@@ -6,18 +6,23 @@ Storage stays the specs' (DTensors); a step computes on each rank's local
 shards with explicit collectives, in the layout the reference's
 ``constrain`` sites name:
 
-* along ``model``, a leaf cut on its heads, d_ff, experts or vocab is
-  computed column-parallel and the product that contracts over the cut
-  dim row-parallel, followed by one all-reduce (``TP.psum``); the router's
-  logits, new K/V rows and the final logits are all-gathered
-  (``TP.gather``). A rank never computes another rank's heads, d_ff,
-  experts or vocabulary rows;
+* along ``model``, a leaf cut on its heads, d_ff, experts, vocab or the
+  RG-LRU's channels is computed column-parallel and the product that
+  contracts over the cut dim row-parallel, followed by one all-reduce
+  (``TP.psum``); the router's logits, new K/V rows and the final logits
+  are all-gathered (``TP.gather``). A leaf cut on D (heads that do not
+  divide ``model``) is row-parallel too, every head on every rank; a
+  cache cut on head_dim sums the partial q·k scores over ``model``. A
+  rank never computes another rank's heads, channels, d_ff, experts or
+  vocabulary rows where the layout cuts them;
 * along the data axes (``pod`` and ``data``, flattened major to minor), a
   batch that divides them is split, each rank computing its own rows (an
   MoE layer still routes every rank's tokens as one group); otherwise a
   cache whose sequence divides them holds a contiguous slot range a rank
   and one-token attention combines the ranks' partial softmax
-  (distributed-cache decode, the reference's ``long_500k``);
+  (distributed-cache decode, the reference's ``long_500k``), as does
+  cross-attention over each rank's frames; a recurrent state cut on its
+  channels or heads has each rank compute that block (``split_axis``);
 * a leaf that ``param_specs`` also cuts over the data axes (``fsdp``) is
   all-gathered over them one layer at a time, just before the layer runs,
   and freed after it (``TP.unshard``).
@@ -75,20 +80,20 @@ class Groups(NamedTuple):
     daxes: Tuple[str, ...]
 
 
-_ONE = Axis(None, 0, 1)
+WHOLE = Axis(None, 0, 1)     # no axis: every rank holds all of a dim
 
 
 def axis_groups(mesh) -> Groups:
     """The ``model`` axis and the data axes of the live ``mesh`` through
     this rank (the mesh's own groups: ``DeviceMesh`` makes each once)."""
     sizes = axis_sizes(mesh)
-    model = _ONE
+    model = WHOLE
     if sizes.get("model", 1) > 1:
         model = Axis(mesh.get_group("model"), _coord(mesh)["model"],
                      sizes["model"])
     daxes = data_axes(mesh)
     dsize = math.prod(sizes[a] for a in daxes)
-    data = _ONE
+    data = WHOLE
     if dsize > 1:
         group = clients_group(mesh)
         data = Axis(group, dist.get_rank(group), dsize)
@@ -96,7 +101,10 @@ def axis_groups(mesh) -> Groups:
 
 
 def _all_reduce(x: Tensor, axis: Axis, op=dist.ReduceOp.SUM) -> Tensor:
+    """``x`` reduced over ``axis`` in place (a contiguous copy of a strided
+    view, such as an einsum's output, is reduced and returned)."""
     if axis.size > 1:
+        x = x.contiguous()
         dist.all_reduce(x, op=op, group=axis.group)
         _COUNTS["all_reduce"] += 1
     return x
@@ -154,10 +162,15 @@ class TP:
 
     def sub(self, key, cache_key=None) -> "TP":
         """The context of the sub-module (or layer) ``key``, its cache the
-        cache's ``cache_key`` (default ``key``)."""
-        return TP(self.groups, _child(self.pspecs, key),
-                  _child(self.cspecs, key if cache_key is None
-                         else cache_key), self.batch_split)
+        cache's ``cache_key`` (default ``key``; a dict {name: key} gathers
+        several of the cache's entries under new names)."""
+        if isinstance(cache_key, dict):
+            cspecs = {n: _child(self.cspecs, k) for n, k in cache_key.items()}
+        else:
+            cspecs = _child(self.cspecs, key if cache_key is None
+                            else cache_key)
+        return TP(self.groups, _child(self.pspecs, key), cspecs,
+                  self.batch_split)
 
     @property
     def model(self) -> Axis:
@@ -237,24 +250,97 @@ def _cut_rows(x: Tensor, axis: Axis, what: str) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the families this slice computes over a mesh
+# a layer's channels (or heads) cut into blocks: the recurrent layers, and
+# their states in the cache
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the mesh steps do not
-    compute yet: recurrent ("R", "W") layers and the encoder-decoder."""
-    kinds = set(cfg.layer_types())
-    if "R" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: serving over a mesh does not compute RG-LRU "
-            f"('R') layers yet")
-    if "W" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: serving over a mesh does not compute RWKV6 "
-            f"('W') layers yet")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: serving over a mesh does not compute the "
-            f"encoder or cross-attention yet")
+def block(x: Tensor, axis: Axis, dim: int) -> Tensor:
+    """This rank's contiguous block of ``x``'s ``dim``, cut into
+    ``axis.size`` equal blocks (``x`` itself at size 1)."""
+    if axis.size == 1:
+        return x
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.rank * n, n)
+
+
+def split_axis(tp: Optional[TP], cuts: Dict[str, Any],
+               state: Optional[str] = None, state_dim: int = 1) -> Axis:
+    """The axis whose ranks each compute one block of a layer's channels
+    (or heads): ``model`` where a leaf of ``cuts`` (name -> the dim, or
+    dims, the layer computes it cut on) is cut over it, each cut leaf on
+    one of its dims (else ``NotImplementedError`` names the leaf and
+    dim); else the data axes where the cache leaf ``state`` is cut over
+    them on ``state_dim`` (batch 1 over data: the weights whole, the
+    state's channels a rank); else a size-1 axis, every channel on every
+    rank."""
+    if tp is None:
+        return WHOLE
+    cut = {n: d for n, d in ((n, tp.dim(n)) for n in cuts
+                             if n in (tp.pspecs or {}))
+           if d is not None}
+    for n, d in cut.items():
+        ok = cuts[n] if isinstance(cuts[n], tuple) else (cuts[n],)
+        if d not in ok:
+            raise NotImplementedError(
+                f"{n} cut over 'model' on dim {d}; the mesh steps compute "
+                f"it cut on dim {' or '.join(map(str, ok))}, or whole")
+    if cut:
+        return tp.model
+    if state is not None and tp.cspecs is not None \
+            and tp.cache_dim(state, "data") == state_dim:
+        return tp.data
+    return WHOLE
+
+
+def take(tp: Optional[TP], params, name: str, dim: int, ax: Axis) -> Tensor:
+    """Leaf ``name``'s block of ``dim`` for ``ax``: as stored where it is
+    cut over ``model`` on that dim, else cut from the whole leaf."""
+    w = params[name]
+    if tp is not None and tp.dim(name) == dim:
+        return w
+    return block(w, ax, dim)
+
+
+def _state_cut(tp: Optional[TP], name: str, dim: int) -> bool:
+    return (tp is not None and tp.cspecs is not None
+            and tp.cache_dim(name, "data") == dim)
+
+
+def to_cache(tp: Optional[TP], x: Tensor, name: str, dim: int,
+             ax: Axis = WHOLE) -> Tensor:
+    """This rank's shard of the cache leaf ``name`` from ``x``, which
+    holds ``ax``'s block of ``dim`` (all of it at size 1): gathered over
+    ``ax``, then cut to this rank's block where the cache cuts ``dim``
+    over the data axes; ``x`` itself where no cache is kept (a forward
+    over the mesh, ``tp.cspecs`` None)."""
+    if tp is None or tp.cspecs is None:
+        return x
+    cut = _state_cut(tp, name, dim)
+    if cut and ax is tp.data:
+        return x
+    x = _all_gather(x, ax, dim)
+    return block(x, tp.data, dim) if cut else x
+
+
+def from_cache(tp: Optional[TP], c: Tensor, name: str, dim: int,
+               ax: Axis = WHOLE) -> Tensor:
+    """``ax``'s block of ``dim`` (all of it at size 1) of the cache leaf
+    ``name`` from this rank's shard ``c``."""
+    cut = _state_cut(tp, name, dim)
+    if cut and ax is tp.data:
+        return c
+    if cut:
+        c = _all_gather(c, tp.data, dim)
+    return block(c, ax, dim)
+
+
+def sum_over(x: Tensor, ax: Axis) -> Tensor:
+    """Sum over ``ax`` in place (partial products of a block each)."""
+    return _all_reduce(x, ax)
+
+
+def gather_over(x: Tensor, ax: Axis, dim: int) -> Tensor:
+    """Every rank of ``ax``'s ``x`` concatenated along ``dim``."""
+    return _all_gather(x, ax, dim)
 
 
 def _local(x: Any) -> Any:
@@ -273,7 +359,6 @@ class MeshModel:
     and the local shards they compute on."""
 
     def __init__(self, model, mesh):
-        check_family(model.cfg)
         self.model, self.cfg, self.mesh = model, model.cfg, mesh
         self.pspecs = param_specs(model.param_shapes(), model.cfg, mesh)
         self.groups = axis_groups(mesh)
@@ -349,21 +434,47 @@ class MeshModel:
         return tree_map(leaf, shapes, specs)
 
     # -- the steps --------------------------------------------------------
-    def init_cache(self, params: Any, batch: int, max_len: int) -> Any:
+    def init_cache(self, params: Any, batch: int, max_len: int,
+                   memory: Optional[Tensor] = None) -> Any:
         """An empty cache in the weights' dtype stored by ``cache_specs``:
-        each rank allocates only its shards."""
+        each rank allocates only its shards (keys and values, the
+        recurrent layers' states, an encoder-decoder's cross keys and
+        values: those of ``memory`` (B, F, D), this rank's shard, when
+        given, else zeros)."""
+        from repro_torch.models import attention
         emb = _local(params["embed"])
         shapes = self.cache_shapes(batch, max_len, emb.dtype)
         specs = cache_specs(shapes, self.cfg, self.mesh, batch)
-        return self.cache_dtensors(
-            self.local_cache_zeros(shapes, specs, emb.device), shapes, specs)
+        local = self.local_cache_zeros(shapes, specs, emb.device)
+        if memory is not None and self.cfg.is_encdec:
+            tp = self.tp(batch, specs)
+            mem = self.local_rows(memory, self.batch_spec(batch))
+            lp = self.local_params(params)["layers"]
+            with torch.no_grad():
+                for i, lc in enumerate(local["layers"]):
+                    ctp = tp.sub("layers").sub(i).sub("cross")
+                    kv = attention.init_cross_cache(lp[i]["cross"], mem,
+                                                    self.cfg, ctp)
+                    for k, v in kv.items():
+                        lc["cross"][k].copy_(v)
+        return self.cache_dtensors(local, shapes, specs)
+
+    def _encode(self, lp: Any, batch: Dict[str, Tensor], tp: TP,
+                bspec: Spec) -> Optional[Tensor]:
+        """An encoder-decoder's encoded frames, this rank's rows."""
+        from repro_torch.models import transformer as tfm
+        if not self.cfg.is_encdec:
+            return None
+        return tfm.encode(lp, self.cfg,
+                          self.local_rows(batch["frames"], bspec), tp)
 
     def prefill(self, params: Any, batch: Dict[str, Tensor], max_len: int
                 ) -> Tuple[DTensor, Any]:
         """``Model.prefill`` over the mesh: (last logits (B, V) stored by
         ``batch_specs``, the cache stored by ``cache_specs``), each rank
-        computing its rows, its heads, d_ff and experts and its shard of
-        the cache."""
+        computing its rows, its heads, channels, d_ff and experts (an
+        encoder-decoder's ``frames`` encoded first, its cross keys and
+        values this rank's) and its shard of the cache."""
         from repro_torch.models import transformer as tfm
         from repro_torch.models.common import softcap
         tokens = batch["tokens"]
@@ -375,9 +486,10 @@ class MeshModel:
         bspec = self.batch_spec(b)
         with torch.no_grad():
             lp = tfm.unshard_head(lp, tp)
+            memory = self._encode(lp, batch, tp, bspec)
             h, cache = tfm.prefill_hidden(lp, self.cfg,
                                           self.local_rows(tokens, bspec),
-                                          max_len, tp=tp)
+                                          max_len, memory=memory, tp=tp)
             logits = softcap(tfm.logits_fn(lp, self.cfg, h[:, -1:], tp)[:, 0],
                              self.cfg.logit_softcap)
         return (self.rows_dtensor(logits, b, bspec),
@@ -386,7 +498,8 @@ class MeshModel:
     def last_logits(self, params: Any, batch: Dict[str, Tensor]) -> DTensor:
         """``serve.make_prefill_step``'s function over the mesh: the
         full-sequence forward of ``batch`` (its leaves' rows cut as
-        ``batch_specs`` says), last-position logits stored by it."""
+        ``batch_specs`` says: a VLM's ``patches``, an encoder-decoder's
+        ``frames``), last-position logits stored by it."""
         from repro_torch.models import transformer as tfm
         from repro_torch.models.common import softcap
         b = batch["tokens"].shape[0]
@@ -404,16 +517,21 @@ class MeshModel:
                specs: Any = None) -> Tuple[DTensor, Any]:
         """One decode step over the mesh on a cache stored by
         ``cache_specs`` (``specs``, else read off the cache): (logits
-        (B, V) stored by ``batch_specs``, ``cache``, written in place)."""
+        (B, V) stored by ``batch_specs``, ``cache``, written in place: the
+        attention caches by the layers, the recurrent states copied into
+        their shards)."""
         from repro_torch.models import transformer as tfm
         b = token.shape[0]
         if specs is None:
             specs = cache_specs(cache, self.cfg, self.mesh, b)
         bspec = self.batch_spec(b)
+        local = local_tree(cache)
         with torch.no_grad():
-            logits, _ = tfm.decode_step(
-                self.local_params(params), self.cfg, local_tree(cache),
+            logits, new = tfm.decode_step(
+                self.local_params(params), self.cfg, local,
                 self.local_rows(token, bspec), index, tp=self.tp(b, specs))
+            tree_map(lambda old, x: old if x is old else old.copy_(x),
+                     local, new)
         return self.rows_dtensor(logits, b, bspec), cache
 
 

@@ -16,6 +16,16 @@ the CUDA kernel for tensors on the card, its plain version on the CPU
 both (its backward is the same scan in reverse time, through the same
 kernel on the card). Decode is a single-step state update and launches
 no kernel.
+
+Over a mesh (``tp``), each rank computes one block of the rd channels:
+the block its weights hold where the rules cut them over ``model``
+(``w_in`` / ``w_gate`` / ``w_a`` / ``w_i`` / ``conv_w`` on their columns,
+``w_out`` on its rows; whole leaves are cut here), else, at batch 1 over
+the data axes, the block its state ``h`` holds. The conv's output is
+all-gathered once to feed the column-parallel gates, the scan runs on
+the rank's (B, T, rd / ranks) block, ``w_out``'s partial products are
+summed over the axis, and the state is written as the cache's specs
+store it (gathered where the cache holds every channel).
 """
 from __future__ import annotations
 
@@ -67,11 +77,27 @@ def _causal_conv1d(x: Tensor, w: Tensor, state: Optional[Tensor] = None
     return out
 
 
-def _gates(params, u: Tensor) -> Tuple[Tensor, Tensor]:
-    r = torch.sigmoid(u @ params["w_a"])
-    i = torch.sigmoid(u @ params["w_i"])
+# the dim of each leaf that holds the rd channels
+_CHANNELS = {"w_in": 1, "w_gate": 1, "w_a": 1, "w_i": 1, "conv_w": 1,
+             "w_out": 0}
+
+
+def _split(tp):
+    """(``models.parallel``, the axis whose ranks compute a block of the
+    channels: size 1 off a mesh)."""
+    from repro_torch.models import parallel as par
+    return par, par.split_axis(tp, _CHANNELS, "h", 1)
+
+
+def _gates(params, u: Tensor, tp, ax) -> Tuple[Tensor, Tensor]:
+    """(a, gated input) of the conv's output ``u``: the channels of
+    ``ax``'s block, the gates' input gathered whole over it."""
+    from repro_torch.models import parallel as par
+    uf = par.gather_over(u, ax, -1)
+    r = torch.sigmoid(uf @ par.take(tp, params, "w_a", 1, ax))
+    i = torch.sigmoid(uf @ par.take(tp, params, "w_i", 1, ax))
     log_a = -_C * torch.nn.functional.softplus(
-        params["lambda"].to(torch.float32)) * r
+        par.block(params["lambda"], ax, 0).to(torch.float32)) * r
     a = torch.exp(log_a).to(u.dtype)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, 1e-12, 1.0)) * i * u
     return a, gated
@@ -86,29 +112,47 @@ def rglru_scan(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
     return ops.linear_scan(a, b)
 
 
-def rglru_prefill(params, x: Tensor, cfg: ModelConfig
+def rglru_prefill(params, x: Tensor, cfg: ModelConfig, tp=None
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Full-sequence forward of x (B, T, D) that also returns the decode
     state after the last position: ``h`` = the scan's last row and
     ``conv`` = the last W-1 rows of ``x @ w_in`` (before the conv),
-    zero-padded on the left when T < W-1."""
-    gate = gelu(x @ params["w_gate"])
-    u = x @ params["w_in"]
-    a, b = _gates(params, _causal_conv1d(u, params["conv_w"]))
+    zero-padded on the left when T < W-1. Over a mesh (``tp``), this
+    rank's channel block (see the module's docstring) and its shard of
+    the state."""
+    par, ax = _split(tp)
+
+    def w(name, dim):
+        return par.take(tp, params, name, dim, ax)
+    gate = gelu(x @ w("w_gate", 1))
+    u = x @ w("w_in", 1)
+    a, b = _gates(params, _causal_conv1d(u, w("conv_w", 1)), tp, ax)
     h = ops.linear_scan(a, b)
-    y = (h * gate) @ params["w_out"]
+    y = par.sum_over((h * gate) @ w("w_out", 0), ax)
     keep = cfg.conv1d_width - 1
     tail = u[:, max(u.shape[1] - keep, 0):]
     if tail.shape[1] < keep:
         tail = torch.cat([tail.new_zeros(tail.shape[0],
                                          keep - tail.shape[1],
                                          tail.shape[2]), tail], dim=1)
-    return y, {"h": h[:, -1], "conv": tail}
+    return y, _state(par, tp, ax, h[:, -1], tail)
 
 
-def rglru_forward(params, x: Tensor, cfg: ModelConfig) -> Tensor:
+def _state(par, tp, ax, h: Tensor, conv: Tensor) -> Dict[str, Tensor]:
+    """The cache's ``h`` and ``conv`` from ``ax``'s channel block of them:
+    one all-gather of both over ``ax``, ``h`` then cut to this rank's
+    block where the cache cuts its channels over the data axes (the
+    block as it is in a forward that keeps no cache)."""
+    if ax.size == 1 or tp.cspecs is None:      # or no cache is kept
+        return {"h": par.to_cache(tp, h, "h", 1), "conv": conv}
+    both = par.gather_over(torch.cat([conv, h[:, None]], 1), ax, -1)
+    return {"h": par.to_cache(tp, both[:, -1], "h", 1).contiguous(),
+            "conv": both[:, :-1].contiguous()}
+
+
+def rglru_forward(params, x: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
     """Full-sequence forward. x: (B, T, D)."""
-    return rglru_prefill(params, x, cfg)[0]
+    return rglru_prefill(params, x, cfg, tp)[0]
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -120,13 +164,20 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def rglru_decode(params, x: Tensor, state: Dict[str, Tensor],
-                 cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """One-token decode. x: (B, 1, D)."""
-    gate = gelu(x @ params["w_gate"])
-    u = x @ params["w_in"]                                   # (B, 1, rd)
-    conv_in = torch.cat([state["conv"], u], dim=1)           # (B, W, rd)
-    u_c = torch.einsum("bwc,wc->bc", conv_in, params["conv_w"])[:, None]
-    a, b = _gates(params, u_c)
-    h = a[:, 0] * state["h"] + b[:, 0]
-    y = (h[:, None] * gate) @ params["w_out"]
-    return y, {"h": h, "conv": conv_in[:, 1:]}
+                 cfg: ModelConfig, tp=None
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token decode. x: (B, 1, D). Over a mesh (``tp``), this rank's
+    channel block, the state read from and written to its shard."""
+    par, ax = _split(tp)
+
+    def w(name, dim):
+        return par.take(tp, params, name, dim, ax)
+    gate = gelu(x @ w("w_gate", 1))
+    u = x @ w("w_in", 1)                                     # (B, 1, rd)
+    conv = par.from_cache(tp, state["conv"], "conv", 2, ax)
+    conv_in = torch.cat([conv, u], dim=1)                    # (B, W, rd)
+    u_c = torch.einsum("bwc,wc->bc", conv_in, w("conv_w", 1))[:, None]
+    a, b = _gates(params, u_c, tp, ax)
+    h = a[:, 0] * par.from_cache(tp, state["h"], "h", 1, ax) + b[:, 0]
+    y = par.sum_over((h[:, None] * gate) @ w("w_out", 0), ax)
+    return y, _state(par, tp, ax, h, conv_in[:, 1:])

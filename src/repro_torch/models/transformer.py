@@ -206,18 +206,26 @@ def _layer_tp(tp, i: int):
     return None if tp is None else tp.sub("layers").sub(i)
 
 
-def encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
+def encode(params, cfg: ModelConfig, frames: Tensor, tp=None) -> Tensor:
     """Whisper-style encoder over stub frame embeddings (B, F, D), cast
     to the weights' dtype: sinusoidal positions, then "A" layers that
     attend over all F frames both ways, then the final RMS norm
-    (gemma-style, as the reference's; not Whisper's LayerNorm)."""
+    (gemma-style, as the reference's; not Whisper's LayerNorm). Over a
+    mesh (``tp``, the model's), this rank's rows and its shards of the
+    encoder's weights: a layer whose spec the reference gives its stack's
+    layer dim (``Spec.layer``) is whole on every rank, and ``wq`` / ``wk``
+    / ``wv`` cut on D compute every head on every rank."""
     enc = params["encoder"]
     f = frames.shape[1]
     x = frames.to(enc["final_norm"].dtype)
     x = x + sinusoidal_positions(f, cfg.d_model, x.device).to(x.dtype)
-    for lp in enc["layers"]:
+    etp = None if tp is None else tp.sub("encoder").sub("layers")
+    for i, lp in enumerate(enc["layers"]):
+        ltp = None if etp is None else etp.sub(i)
+        if ltp is not None:
+            lp = ltp.unshard(lp)
         x, _ = blocks.layer_forward(lp, x, cfg=cfg, layer_type="A",
-                                    prefix_len=f)
+                                    prefix_len=f, tp=ltp)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -239,7 +247,7 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Tensor],
         x = torch.cat([patches.to(x.dtype), x], dim=1)
         prefix_len = patches.shape[1]
     if cfg.is_encdec:
-        memory = encode(params, cfg, batch["frames"])
+        memory = encode(params, cfg, batch["frames"], tp)
     if _sinusoidal(cfg):
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)
@@ -299,7 +307,8 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
     """An empty decode cache in the weights' dtype on their device (the
     decode path computes in one dtype, so the cache takes the weights');
     an encoder-decoder's layers hold ``memory``'s cross-attention keys
-    and values, or zeros of ``cfg.enc_frames`` frames without it."""
+    and values, or zeros of ``cfg.enc_frames`` frames without it. (Over
+    a mesh: ``MeshModel.init_cache``.)"""
     emb = params["embed"]
     cross = cfg.is_encdec
     layers = [blocks.init_layer_cache(cfg, lt, batch, max_len, emb.dtype,

@@ -5,10 +5,12 @@ Without a mesh the steps run on the params' device. Over a live
 ``DeviceMesh`` they store weights by ``param_specs``, the cache by
 ``cache_specs`` and tokens and logits by ``batch_specs``, as the
 reference's ``in_shardings`` / ``out_shardings`` do, and compute each
-rank's share (``models/parallel.py``): heads, d_ff, experts and
-vocabulary over ``model`` (tensor-parallel), the batch over the data
-axes when it divides them, else the cache's sequence (batch-1
-distributed-cache decode, the reference's ``long_500k``).
+rank's share (``models/parallel.py``): heads, the RG-LRU's channels, the
+RWKV6 heads, d_ff, experts and vocabulary over ``model``
+(tensor-parallel), the batch over the data axes when it divides them,
+else the cache's sequence, a recurrent state's channels or heads and the
+cross-attention's frames (batch-1 distributed-cache decode, the
+reference's ``long_500k``).
 """
 from __future__ import annotations
 
@@ -42,15 +44,15 @@ def make_serve_step(model: Model, mesh=None, *, batch: Optional[int] = None,
     (params as ``Model.init(..., mesh=)`` draws them; whole tokens are
     cut here) and returns
     the logits stored by the token's spec and the cache, written in
-    place. Raises ``NotImplementedError`` for the families the mesh steps
-    do not compute yet (recurrent layers, the encoder-decoder)."""
+    place (the recurrent layers' states copied into their shards). Every
+    family runs over a mesh; a placement the mesh steps do not compute
+    raises ``NotImplementedError`` naming the leaf and the dim."""
     cfg = model.cfg
     if mesh is None:
         def serve_step(params, cache, token, index):
             return tfm.decode_step(params, cfg, cache, token, index)
         return serve_step, None
-    from repro_torch.models.parallel import check_family, mesh_model
-    check_family(cfg)
+    from repro_torch.models.parallel import mesh_model
     if batch is None or max_len is None:
         raise ValueError("a serve step over a mesh needs batch and max_len")
     mm = mesh_model(model, mesh)

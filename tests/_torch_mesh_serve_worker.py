@@ -33,35 +33,75 @@ import torch.distributed as dist
 # 2 KV heads do not divide a model axis of 4 (wk / wv cut on D,
 # row-parallel), and paligemma's decoder (one KV head, row-parallel too)
 # with its image prefix through ``make_prefill_step``. ``reduced``'s
-# d_model 256 and 4 heads keep every sharded leaf above the rules' 64 KiB
+# d_model 256 and 4 heads keep every sharded leaf above the rules' 64 KiB.
+# The recurrent and encoder-decoder families at configs whose leaves the
+# rules cut on the published config's dims on every mesh of ``RUNS``
+# (``PUBLISHED``): recurrentgemma's 2 heads of 64 over one KV head at 8
+# layers (R, R, L twice and the R, R tail: wq cut on D over 4 ranks and
+# on its heads over 2, wk / wv on D, wo on its output D, a cache over
+# (2, 2) cut on head_dim), rwkv6's 4 heads at d_model 128 (w_v / w_o /
+# w_decay1 on their rows), whisper's 4 heads of 32 at d_model 128 with
+# 4 encoder layers (the encoder's wq / wk / wv cut on D) and a
+# vocabulary of 513 (the tied embedding cut on D)
+RECURRENT = dict(d_model=128, d_ff=384, rg_lru_dim=128,
+                 block_pattern=("R", "R", "L"))
 CASES = {
     "gemma2": ("gemma2-2b", {}),
     "mixtral_fsdp": ("mixtral-8x7b", {"fsdp": True}),
     "llama4": ("llama4-maverick-400b-a17b", {}),
     "dense_kv2": ("mistral-large-123b", {"n_kv_heads": 2}),
     "paligemma": ("paligemma-3b", {}),
+    "recurrentgemma": ("recurrentgemma-2b", dict(
+        RECURRENT, num_layers=8, n_heads=2, n_kv_heads=1, head_dim=64)),
+    "rwkv6": ("rwkv6-1.6b", dict(d_model=128, n_heads=4, n_kv_heads=4,
+                                 head_dim=32, d_ff=384,
+                                 block_pattern=("W",))),
+    "whisper": ("whisper-small", dict(d_model=128, n_heads=4, n_kv_heads=4,
+                                      head_dim=32, d_ff=384, enc_layers=4,
+                                      vocab_size=513, rope_theta=0.0)),
+}
+# case -> (the published config's fields replaced, the leaves the test
+# config keeps whole where the published one cuts them: each would need
+# a width or depth that costs too much here, and the card's parity
+# check at the published widths runs them cut): recurrentgemma's
+# scanned conv_w (cut at rd 2560, whole below rd 2048 at 8 layers),
+# rwkv6's mu (cut from 4 x d_model x layers >= 16384 up; 8 layers at
+# d_model 512 drift 2.4e-6 apart in fp32, past the caches' 1e-6)
+PUBLISHED = {
+    "recurrentgemma": (dict(num_layers=8), ("conv_w",)),
+    "rwkv6": (dict(num_layers=2), ("mu",)),
+    "whisper": (dict(num_layers=2, enc_layers=4), ()),
 }
 # (data, model) mesh and batch: (4, 1) at batch 1 is the reference's
-# long_500k (the cache's sequence over data); (2, 2) at batch 2 splits the
-# batch over data and the heads over model; (1, 4) is tensor parallelism
-# alone; (2, 2) at batch 1 (the sequence over data, the heads over model)
-# and (4, 1) at batch 4 (the batch over data alone; mixtral's routing over
-# four ranks' tokens) the other mixes; paligemma at batch 1 (its one KV
-# head cuts a cache split over the batch on head_dim, which the mesh
-# steps refuse: ``raises_fields``)
+# long_500k (the cache's sequence, a recurrent state's channels or
+# heads and the cross-attention's frames over data); (2, 2) at batch 2
+# splits the batch over data and the heads over model (recurrentgemma's
+# and paligemma's one KV head: their caches cut on head_dim); (1, 4) is
+# tensor parallelism alone; (2, 2) at batch 1 (the sequence over data,
+# the heads over model: a recurrent state gathered over data and cut
+# over model) and (4, 1) at batch 4 (the batch over data alone;
+# mixtral's routing over four ranks' tokens) the other mixes; paligemma
+# at batch 1 on (1, 4) and (4, 1) too
 MAIN_RUNS = (((4, 1), 1), ((2, 2), 2), ((1, 4), 4))
-VLM_RUNS = (((1, 4), 1), ((4, 1), 1))
+VLM_RUNS = (((1, 4), 1), ((4, 1), 1), ((2, 2), 2))
 RUNS = {
     "gemma2": MAIN_RUNS + (((2, 2), 1), ((4, 1), 4)),
     "mixtral_fsdp": MAIN_RUNS + (((4, 1), 4),),
     "llama4": MAIN_RUNS,
     "dense_kv2": (((1, 4), 4),),
     "paligemma": VLM_RUNS,
+    "recurrentgemma": MAIN_RUNS + (((2, 2), 1),),
+    "rwkv6": MAIN_RUNS + (((2, 2), 1),),
+    "whisper": MAIN_RUNS + (((2, 2), 1),),
 }
-# the runs the reference's mesh steps are held to as well
+# the runs the reference's mesh steps are held to as well: each family
+# on one mesh
 REFERENCE_RUNS = {**{c: MAIN_RUNS for c in ("gemma2", "mixtral_fsdp",
                                             "llama4")},
-                  "paligemma": VLM_RUNS}
+                  "paligemma": VLM_RUNS[:2],
+                  "recurrentgemma": (((2, 2), 2),),
+                  "rwkv6": (((1, 4), 4),),
+                  "whisper": (((4, 1), 1),)}
 # a prompt past the reduced window and chunk (64), a cache of 76 slots
 # (divides 4 data ranks); the greedy steps wrap the "L" ring
 PROMPT, STEPS = 72, 4
@@ -92,26 +132,32 @@ def prompt(name: str, batch: int) -> torch.Tensor:
 
 
 def prefill_inputs(name: str, batch: int) -> dict:
-    """``make_prefill_step``'s inputs: the prompt and, for a VLM, its
-    image prefix (``vis_tokens`` patch embeddings a row)."""
+    """The prefill's and ``make_prefill_step``'s inputs: the prompt and,
+    for a VLM, its image prefix (``vis_tokens`` patch embeddings a row;
+    ``Model.prefill`` ignores them), for an encoder-decoder its
+    ``enc_frames`` frame embeddings a row."""
     cfg = case_cfg(name)
     out = {"tokens": prompt(name, batch)}
+    gen = torch.Generator().manual_seed(200 + case_seed(name) * 10 + batch)
     if cfg.vis_tokens:
-        gen = torch.Generator().manual_seed(200 + case_seed(name) * 10 + batch)
         out["patches"] = torch.randn((batch, cfg.vis_tokens, cfg.d_model),
                                      generator=gen)
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                                    generator=gen)
     return out
 
 
-def greedy(model, params, tokens, step, prefill) -> dict:
-    """Prefill, then ``STEPS`` greedy steps from the prompt's last token
-    at index ``PROMPT``: the logits, tokens and caches whole."""
+def greedy(model, params, inputs, step, prefill) -> dict:
+    """Prefill ``inputs``, then ``STEPS`` greedy steps from the prompt's
+    last token at index ``PROMPT``: the logits, tokens and caches
+    whole."""
     from repro_torch.sharding import full_tree
 
-    logits, cache = prefill(params, {"tokens": tokens}, MAX_LEN)
+    logits, cache = prefill(params, inputs, MAX_LEN)
     out = {"prefill": whole(logits).numpy(),
            **flat_cache(full_tree(cache), "cache0")}
-    tok = tokens[:, -1]
+    tok = inputs["tokens"][:, -1]
     steps, toks = [], []
     for i in range(STEPS):
         logits, cache = step(params, cache, tok, PROMPT + i)
@@ -129,12 +175,14 @@ def whole(x: torch.Tensor) -> torch.Tensor:
 
 
 def flat_cache(cache, tag: str) -> dict:
-    """``<tag>_kv``: every key and value of a cache flattened and
-    concatenated (float64); ``<tag>_pos``: every position."""
+    """``<tag>_kv``: every key and value (and recurrent state) of a cache
+    flattened and concatenated (float64); ``<tag>_pos``: every position
+    (none for a cache of recurrent states alone)."""
     from repro_torch.tree import tree_leaves
 
     leaves = tree_leaves(cache)
-    return {f"{tag}_{k}": torch.cat([x.detach().reshape(-1).double()
+    return {f"{tag}_{k}": torch.cat([torch.zeros(0, dtype=torch.float64)] +
+                                    [x.detach().reshape(-1).double()
                                      for x in leaves
                                      if x.is_floating_point() == fl]).numpy()
             for k, fl in (("kv", True), ("pos", False))}
@@ -223,7 +271,8 @@ def run_fields(name: str, shape, batch: int, mesh) -> dict:
     seed = case_seed(name)
     ref = model.init(seed, device="cpu")
     params = model.init(seed, device="cpu", mesh=mesh)
-    tokens = prompt(name, batch)
+    inputs = prefill_inputs(name, batch)
+    tokens = inputs["tokens"]
     out = {"drawn_equal": np.asarray(drawn_equal(params, ref, mesh, model)),
            "stored": np.asarray(local_numel(params))}
     step1, none = make_serve_step(model)
@@ -232,43 +281,48 @@ def run_fields(name: str, shape, batch: int, mesh) -> dict:
     # the one-device steps are the same on every rank: rank 0 runs them
     runs = (("one", ref, step1, None),) if dist.get_rank() == 0 else ()
     for tag, p, step, m in runs + (("mesh", params, stepm, mesh),):
-        for k, v in greedy(model, p, tokens, step, model.prefill).items():
+        for k, v in greedy(model, p, inputs, step, model.prefill).items():
             out[f"{tag}/{k}"] = v
-        _, cache = model.prefill(p, {"tokens": tokens}, MAX_LEN)
+        _, cache = model.prefill(p, inputs, MAX_LEN)
         if tag == "mesh":
             out["cache_stored"] = np.asarray(local_numel(cache))
         for k, v in step_costs(model, p, cache, tokens, step).items():
             out[f"{tag}/{k}"] = v
         pre = make_prefill_step(model, m, batch=batch)
-        out[f"{tag}/prefill_step"] = whole(
-            pre(p, prefill_inputs(name, batch))).numpy()
+        out[f"{tag}/prefill_step"] = whole(pre(p, inputs)).numpy()
     return out
 
 
+# what the mesh steps refuse, placements no published configuration
+# produces: (mesh, batch, arch, fields replaced after ``reduced``) - an
+# rd of 258 that does not divide 4 ranks, so the rules cut w_in on D;
+# rwkv6's time mix with 2 heads on 4 model ranks (its leaves cut on D);
+# whisper with one KV head on (2, 2) at batch 2, so the cross cache is
+# cut over model on head_dim
+REFUSED = (((1, 4), 4, "recurrentgemma-2b", dict(rg_lru_dim=258)),
+           ((1, 4), 4, "rwkv6-1.6b", dict(n_heads=2, n_kv_heads=2,
+                                          head_dim=128)),
+           ((2, 2), 2, "whisper-small", dict(n_kv_heads=1)))
+
+
 def raises_fields(meshes) -> dict:
-    """What the mesh steps refuse, by message: the families not ported
-    yet, a cache cut over ``model`` on head_dim (paligemma's one KV head
-    on the (2, 2) mesh at batch 2), and whole (not DTensor) params."""
+    """What the mesh steps refuse, by message: the placements of
+    ``REFUSED``, and whole (not DTensor) params."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models.model import Model
-    from repro_torch.serve import make_prefill_step, make_serve_step
+    from repro_torch.serve import make_prefill_step
 
     out = []
-    for arch in ("whisper-small", "recurrentgemma-2b", "rwkv6-1.6b"):
+    for shape, batch, arch, over in REFUSED:
+        model = Model(replace(reduced(get_arch(arch)), **over))
+        params = model.init(0, device="cpu", mesh=meshes[shape])
+        inputs = model.dummy_batch(0, batch, 8)
         try:
-            make_serve_step(Model(reduced(get_arch(arch))), meshes[(2, 2)],
-                            batch=2, max_len=MAX_LEN)
+            model.prefill(params, inputs, MAX_LEN)
             out.append("no error")
         except NotImplementedError as e:
             out.append(str(e))
     model = Model(reduced(get_arch("paligemma-3b")))
-    params = model.init(0, device="cpu", mesh=meshes[(2, 2)])
-    try:
-        model.prefill(params, {"tokens": torch.zeros((2, 8), dtype=torch.long)},
-                      MAX_LEN)
-        out.append("no error")
-    except NotImplementedError as e:
-        out.append(str(e))
     pre = make_prefill_step(model, meshes[(1, 4)], batch=1)
     try:
         pre(model.init(0, device="cpu"),
